@@ -1,0 +1,21 @@
+"""rangefilteredann_tpu_torch — the PyTorch / CUDA port of window search.
+
+A second package beside the JAX reference `rangefilteredann_tpu`, for an
+NVIDIA H100. It imports torch and numpy only, never JAX or the JAX package.
+Indices place their store on the card unless the caller passes
+`device="cpu"`. Ported so far: the exact prefilter (`PrefilterIndex`), whose
+range-masked scan runs as a hand-written CUDA kernel (csrc/scan_topk.cu).
+"""
+
+from .params import (  # noqa: F401
+    DEFAULT_BUILD_PARAMS,
+    DEFAULT_CUTOFF,
+    DEFAULT_SHIFT_FACTOR,
+    DEFAULT_SPLIT_FACTOR,
+    BuildParams,
+    QueryParams,
+    build_query_params,
+)
+from .models import PrefilterIndex  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,178 @@
+"""Host-side machinery for the index classes: the prefilter half.
+
+Counterpart of rangefilteredann_tpu/models/base.py:169-329 and :540. The host
+groups a batch's queries by window width: windows up to window_gather_max()
+gather their own rows (windowed_bruteforce, grouped in power-of-two classes
+and chunked by GATHER_BYTES_BUDGET); wider windows are midpoint-sorted and go
+to the range-masked scan, which is the hand-written kernel when the store
+lies on the card and its plain version when it lies on the CPU.
+
+The JAX package's query cache (_QCACHE, qcache_fill), its packed result fetch
+(_pack_di) and its SCAN_CHUNK split exist to work around a remote TPU link
+and change no result; they are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.bruteforce import windowed_bruteforce
+from ..ops.scan import CHUNK, scan_topk
+from ..ops.topk import EMPTY_ID
+from ..utils.data import METRIC_L2
+
+# Windows up to this width use the per-query gather; wider ones the scan.
+# The JAX package's non-TPU value, kept until a measurement on the card sets
+# its own. Both routes are exact, so results do not depend on it.
+WINDOW_GATHER_MAX = 4096
+
+
+def window_gather_max() -> int:
+    return WINDOW_GATHER_MAX
+
+
+MIN_CLASS = 64  # smallest padded window class
+# Cap on gathered bytes per windowed_bruteforce launch (fp32), to bound memory.
+GATHER_BYTES_BUDGET = 1 << 30
+
+
+def next_pow2(x: int) -> int:
+    return 1 << max(0, int(np.ceil(np.log2(max(1, x)))))
+
+
+def pad_batch(q: int) -> int:
+    """Padded batch size for a q-query launch: pow2 up to 2048, then
+    2048-multiples (the JAX package's shape classes)."""
+    return next_pow2(max(q, 64)) if q <= 2048 else -(-q // 2048) * 2048
+
+
+def pow2_classes(widths: np.ndarray, lo: int = MIN_CLASS, hi: int | None = None):
+    """Assign each width to the smallest power-of-two class >= width (>= lo)."""
+    cls = np.maximum(lo, 1 << np.ceil(np.log2(np.maximum(widths, 1))).astype(np.int64))
+    if hi is not None:
+        cls = np.minimum(cls, hi)
+    return cls
+
+
+def launch_range_bruteforce(
+    data: torch.Tensor,  # [n, d_pad] store
+    norms_sq: torch.Tensor,  # [n]
+    queries_padded: np.ndarray,  # [Q, d_pad] f32 host
+    starts: np.ndarray,  # [Q] int64 host
+    ends: np.ndarray,  # [Q] int64 host
+    k: int,
+    metric: str,
+    norm_col=None,  # fused norm column (PointSet.norm_col), if `data` has one
+    q_rows: np.ndarray | None = None,  # [Q] task -> row of queries_padded
+):
+    """Launch phase of batched_range_bruteforce: enqueues every kernel on the
+    device's stream (returning before they finish) and returns a launch
+    record for finish_range_bruteforce."""
+    if norm_col is not None and norm_col < 0:
+        norm_col = None  # integer stores carry no fused-norm column
+    rows_of = (lambda s: q_rows[s]) if q_rows is not None else (lambda s: s)
+    dev = data.device
+    nq = len(starts)
+    d_pad = queries_padded.shape[1]
+    widths = np.maximum(ends - starts, 0)
+    out_d = np.full((nq, k), np.inf, dtype=np.float32)
+    out_i = np.full((nq, k), EMPTY_ID, dtype=np.int64)
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    results = []  # (query indices, dists, ids) still on the device
+    small = widths <= window_gather_max()
+    # --- small windows: per-query gather, grouped by pow2 window class ---
+    if small.any():
+        idx_small = np.nonzero(small)[0]
+        classes = pow2_classes(widths[idx_small])
+        for w in np.unique(classes):
+            sel = idx_small[classes == w]
+            # Respect the gather budget by chunking the query batch.
+            max_q = max(64, int(GATHER_BYTES_BUDGET // (int(w) * d_pad * 4)))
+            max_q = next_pow2(max_q) // 2 if next_pow2(max_q) > max_q else max_q
+            for lo in range(0, len(sel), max_q):
+                chunk = sel[lo : lo + max_q]
+                d, i = windowed_bruteforce(
+                    data, norms_sq, upload(queries_padded[rows_of(chunk)]),
+                    upload(starts[chunk].astype(np.int32)),
+                    upload(ends[chunk].astype(np.int32)),
+                    window=int(w), k=k, metric=metric, norm_col=norm_col,
+                )
+                results.append((chunk, d, i))
+    # --- large windows: the range-masked scan ---
+    if (~small).any():
+        # (the kernel's wrapper midpoint-sorts these queries into blocks)
+        sel = np.nonzero(~small)[0]
+        # stream only the columns holding real dims: the fused ||x||^2 column
+        # and the padding past it are dead weight (half of d_pad at d=128)
+        d_eff = d_pad if norm_col is None else norm_col
+        qw = min(d_pad, -(-d_eff // CHUNK) * CHUNK)
+        d, i = scan_topk(
+            data, norms_sq, upload(queries_padded[rows_of(sel), :qw]),
+            upload(starts[sel].astype(np.int32)),
+            upload(ends[sel].astype(np.int32)),
+            k=k, metric=metric, d_eff=d_eff,
+        )
+        results.append((sel, d, i))
+    return results, out_d, out_i
+
+
+def finish_range_bruteforce(launch) -> Tuple[np.ndarray, np.ndarray]:
+    """Fetch phase: copy every launched result to the host and scatter it."""
+    return finish_many_range_bruteforce([launch])[0]
+
+
+def finish_many_range_bruteforce(launches) -> "list[Tuple[np.ndarray, np.ndarray]]":
+    """Fetch many launch records (results come back in launch order) and
+    scatter each into its output arrays."""
+    out = []
+    for results, out_d, out_i in launches:
+        for chunk, d, i in results:
+            out_d[chunk] = d.cpu().numpy()
+            out_i[chunk] = i.cpu().numpy()
+        out.append((out_d, out_i))
+    return out
+
+
+def batched_range_bruteforce(
+    data, norms_sq, queries_padded, starts, ends, k, metric,
+    norm_col=None, q_rows=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-NN within per-query sorted-index windows (launch + fetch).
+
+    Returns (dists [Q, k] f32 shifted-L2, ids [Q, k] int64 sorted-order ids).
+    Empty slots: id EMPTY_ID, dist +inf.
+    """
+    return finish_range_bruteforce(launch_range_bruteforce(
+        data, norms_sq, queries_padded, starts, ends, k, metric,
+        norm_col=norm_col, q_rows=q_rows))
+
+
+def finalize_output(
+    dists: np.ndarray,  # [Q, k] shifted-L2 / mips dists, +inf = empty
+    ids_sorted: np.ndarray,  # [Q, k] sorted-order ids, EMPTY_ID = empty
+    decoding: np.ndarray | None,  # sorted id -> original id (None = identity)
+    q_norms: np.ndarray,  # [Q] squared query norms (for L2 un-shifting)
+    metric: str,
+    pad_id: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode sorted ids to original ids and restore true distances.
+
+    Empty slots become (pad_id, FLT_MAX) matching the reference's padding
+    (ref: src/range_filter_tree.h:84-93 pads id=0; postfilter_vamana.h:207-215
+    pads id=-1 as unsigned).
+    """
+    empty = ~np.isfinite(dists)
+    safe = np.where(ids_sorted == EMPTY_ID, 0, ids_sorted)
+    orig = decoding[safe] if decoding is not None else safe
+    out_ids = np.where(empty, np.int64(pad_id) & 0xFFFFFFFF, orig).astype(np.uint32)
+    out_d = dists.astype(np.float32)
+    if metric == METRIC_L2:
+        out_d = out_d + q_norms[:, None].astype(np.float32)
+    out_d = np.where(empty, np.finfo(np.float32).max, out_d).astype(np.float32)
+    return out_ids, out_d

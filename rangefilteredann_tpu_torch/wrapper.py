@@ -1,0 +1,43 @@
+"""User-facing factory API of the port: the prefilter constructor.
+
+Counterpart of rangefilteredann_tpu/wrapper.py (ref: experiments/wrapper.py).
+The factory returns a constructor callable with the (metric, dtype) variant
+baked in. Metric strings: "Euclidian" (reference spelling) and "mips".
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .models.prefilter import PrefilterIndex
+from .params import DEFAULT_BUILD_PARAMS
+
+_DTYPES = {"float": np.float32, "uint8": np.uint8, "int8": np.int8}
+_METRICS = ("Euclidian", "mips")
+
+
+def _check(metric: str, dtype: str):
+    if metric not in _METRICS:
+        raise Exception("Invalid metric " + metric)
+    if dtype not in _DTYPES:
+        raise Exception("Invalid data type " + dtype)
+
+
+def _cast(points, dtype):
+    return np.asarray(points, dtype=_DTYPES[dtype])
+
+
+def prefilter_index_constructor(metric: str, dtype: str):
+    """(ref: wrapper.py:242-262). The constructor's `device` places the
+    store: None means the card."""
+    _check(metric, dtype)
+
+    def ctor(points, filter_values, build_params=DEFAULT_BUILD_PARAMS,
+             device=None):
+        return PrefilterIndex(_cast(points, dtype), filter_values, build_params,
+                              metric=metric, device=device)
+
+    return ctor
+
+
+__all__ = ["prefilter_index_constructor"]
