@@ -2,23 +2,31 @@
 """Smoke run of the PyTorch port (rangefilteredann_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--nq 10240]
+                          [--graph-n 200000] [--graph-nq 10240]
 
 Run from the repository root. It imports nothing of JAX or the JAX package.
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. the card's name and power limit;
   2. nvcc builds every kernel of the port from csrc/ into build/kernels/;
-  3. each kernel against its plain PyTorch version on the card, case by case;
-  4. the main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters, noise
-     0.35, uniform labels, as bench.py makes its data): PrefilterIndex on the
-     card, batch_search of 10,240 queries at k=10 at filter fraction 2^-2
-     (the scan kernel), 2^-12 (the per-query gather) and a mix, with every
-     kernel's launch count reset just before and read just after, recall@10
-     against a float64 numpy oracle, best-of-3 timings, the kernel's own time
-     by CUDA events, and the kernel held against its plain version on the
-     main path's own inputs;
-  5. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
-     launches on the main path, its worst deviation, its times and bound;
-  6. the card line again, then {"ok": true, "device": {...}} as the last line.
+  3. each kernel against its plain PyTorch version on the card, case by case
+     (the scan against ops/bruteforce.scan_bruteforce, the beam search
+     against ops/beam.beam_search_plain);
+  4. the prefilter main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters,
+     noise 0.35, uniform labels, as bench.py makes its data): PrefilterIndex
+     on the card, batch_search of 10,240 queries at k=10 at filter fraction
+     2^-2 (the scan kernel), 2^-12 (the per-query gather) and a mix;
+  5. the graph main path at bench.py's postfilter scale (200,000 x 128 fp32,
+     the same generator): PostfilterVamanaIndex built on the card with
+     R=48, L=100, alpha=1.2, then batch_search of 10,240 queries at k=10,
+     fraction 2^-2, beam 80, final_beam_multiply 2 (the beam kernel);
+     each main path runs with every kernel's launch count reset just before
+     and read just after, and is followed by recall@10 against a float64
+     numpy oracle, best-of-3 timings, a profiler breakdown, the kernel's own
+     time by CUDA events, and the kernel held against its plain version on
+     the main path's own inputs;
+  6. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+     launches on its main path, its worst deviation, its times and bound;
+  7. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -159,6 +167,185 @@ def run_kernel_cases(torch):
     return worst
 
 
+def beam_slab(rng, m, r, w, grid=True):
+    """tests/test_pallas_beam.py's random slab (sorted random adjacency of
+    1..R neighbours, inline blocks copied from the rows) as
+    (data, norms, nbrs, vecs, nbr_norms). With grid=True the values lie on
+    the grid k/8, so every product and partial sum of a distance is exact in
+    float32 and no summation order can change a distance: ids, n_vis and
+    cmps must then be identical. Real-valued data is held on the main path."""
+    data = rng.normal(size=(m, w))
+    data = (np.round(data * 8) / 8 if grid else data).astype(np.float32)
+    norms = np.einsum("ij,ij->i", data, data).astype(np.float32)
+    nbrs = np.full((m, r), -1, dtype=np.int32)
+    for i in range(m):
+        cand = rng.choice(m, size=rng.integers(1, r + 1), replace=False)
+        cand = cand[cand != i]
+        nbrs[i, :len(cand)] = np.sort(cand)
+    safe = np.clip(nbrs, 0, m - 1)
+    return data, norms, nbrs, data[safe], norms[safe]
+
+
+def beam_cases():
+    """(name, metric, R, beam, limit, blocks, inactive, w) cases: fp32 over
+    the grid of R x beam for both metrics, a small limit, an all-inactive
+    batch, bf16 blocks, native int8/uint8 blocks with integer queries
+    (exact), int8 blocks with a per-node scale (held at recall level), and
+    the widths w = 32, 96 and 256 beside the main path's 128 (the row loads
+    and the shared-memory layout depend on w)."""
+    cases = [(f"fp32-{metric}-R{r}-beam{beam}", metric, r, beam, 10_000, "fp32", 3, 128)
+             for metric in ("l2", "mips") for r in (5, 48, 64)
+             for beam in (8, 40, 80, 512, 2048)]
+    cases += [("fp32-l2-R48-beam40-limit7", "l2", 48, 40, 7, "fp32", 3, 128),
+              ("fp32-l2-R5-beam8-all-inactive", "l2", 5, 8, 10_000, "fp32", 64, 128),
+              ("bf16-l2-R48-beam80", "l2", 48, 80, 10_000, "bf16", 3, 128),
+              ("bf16-mips-R64-beam512", "mips", 64, 512, 10_000, "bf16", 3, 128),
+              ("int8-l2-R48-beam40", "l2", 48, 40, 10_000, "int8", 3, 128),
+              ("uint8-mips-R48-beam40", "mips", 48, 40, 10_000, "uint8", 3, 128),
+              ("int8scale-l2-R64-beam80", "l2", 64, 80, 10_000, "int8scale", 3, 128),
+              ("int8scale-mips-R64-beam80", "mips", 64, 80, 10_000, "int8scale", 3, 128)]
+    cases += [("fp32-l2-R48-beam80-w32", "l2", 48, 80, 10_000, "fp32", 3, 32),
+              ("fp32-mips-R5-beam40-w96", "mips", 5, 40, 10_000, "fp32", 3, 96),
+              ("fp32-l2-R64-beam2048-w256", "l2", 64, 2048, 10_000, "fp32", 3, 256),
+              ("fp32-mips-R48-beam512-w256", "mips", 48, 512, 10_000, "fp32", 3, 256),
+              ("bf16-l2-R48-beam80-w256", "l2", 48, 80, 10_000, "bf16", 3, 256),
+              ("int8-l2-R48-beam40-w256", "l2", 48, 40, 10_000, "int8", 3, 256),
+              ("uint8-mips-R48-beam40-w32", "mips", 48, 40, 10_000, "uint8", 3, 32),
+              ("int8scale-l2-R64-beam80-w256", "l2", 64, 80, 10_000, "int8scale", 3, 256)]
+    return cases
+
+
+def beam_case_inputs(torch, rng, metric, r, blocks, inactive, w, m=3000, q=64):
+    """Tensors on the card for one case: the kernel wrapper's arguments and
+    the float data the int8-scale recall check needs."""
+    from rangefilteredann_tpu_torch.ops.distances import gathered_distances
+
+    data, norms, nbrs, vecs, nrm = beam_slab(rng, m, r, w, grid=blocks != "int8scale")
+    queries = (np.round(rng.normal(size=(q, w)) * 8) / 8).astype(np.float32)
+    scale = None
+    if blocks in ("int8", "uint8"):  # a byte store, integer queries
+        lo = -100 if blocks == "int8" else 0
+        data = rng.integers(lo, lo + 200, size=(m, w)).astype(np.float32)
+        norms = np.einsum("ij,ij->i", data, data).astype(np.float32)
+        safe = np.clip(nbrs, 0, m - 1)
+        vecs, nrm = data[safe].astype(np.int8 if blocks == "int8" else np.uint8), norms[safe]
+        queries = rng.integers(-20, 20, size=(q, w)).astype(np.float32)
+    elif blocks == "int8scale":  # tests/test_pallas_beam.py's quantization
+        queries = rng.normal(size=(q, w)).astype(np.float32)
+        scale = (np.abs(vecs).max(axis=(1, 2)) / 127.0).astype(np.float32)
+        vecs = np.clip(np.rint(vecs / scale[:, None, None]), -127, 127).astype(np.int8)
+    starts = rng.integers(0, m, size=q).astype(np.int32)
+    active = np.ones(q, dtype=bool)
+    active[q - inactive:] = False
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    v = dev(vecs)
+    if blocks == "bf16":
+        v = v.to(torch.bfloat16)
+    st = dev(starts)
+    d0 = gathered_distances(dev(queries), dev(data)[st.long()][:, None, :],
+                            dev(norms)[st.long()][:, None], metric)[:, 0]
+    args = (v, dev(nbrs), dev(nrm), None if scale is None else dev(scale),
+            dev(queries), st, d0, dev(active))
+    return args, (data, queries)
+
+
+def frontier_agreement(got, plain):
+    """How far the kernel's frontiers agree with the plain version's:
+    (share identical id by id, share identical up to near-tie order, max
+    |dist - plain dist| over the ids both frontiers hold, and the gaps in
+    float32 ulps between the plain distances of the entries that two
+    same-set frontiers order differently).
+
+    Two summation orders of one fp32 dot product differ in the last bits,
+    which can swap two frontier entries whose distances are that close. A
+    frontier counts as identical up to near-tie order when it holds the same
+    ids, and wherever the ids differ, the plain version's distance of the
+    kernel's id lies within RTOL/ATOL of the plain distance at that slot.
+    Raises where the distances of a common id differ by more than RTOL/ATOL."""
+    gi, gd = (x.cpu().numpy() for x in got[:2])
+    pi, pd = (x.cpu().numpy() for x in plain[:2])
+    same = (gi == pi).all(axis=1)
+    same_set = (np.sort(gi, axis=1) == np.sort(pi, axis=1)).all(axis=1)
+    tie_order = same.copy()
+    fin = np.isfinite(pd[same])
+    np.testing.assert_array_equal(np.isfinite(gd[same]), fin)
+    kd, wd, ulps = [gd[same][fin]], [pd[same][fin]], [np.zeros(0)]
+    for qi in np.nonzero(~same)[0]:
+        _, a, b = np.intersect1d(gi[qi], pi[qi], return_indices=True)
+        keep = np.isfinite(pd[qi, b])
+        kd.append(gd[qi, a][keep])
+        wd.append(pd[qi, b][keep])
+        if same_set[qi]:
+            order = np.argsort(pi[qi], kind="stable")
+            pd_of_g = pd[qi, order[np.searchsorted(pi[qi, order], gi[qi])]]
+            moved = gi[qi] != pi[qi]
+            gap = np.abs(pd_of_g - pd[qi])[moved]
+            tie_order[qi] = (gap <= ATOL + RTOL * np.abs(pd[qi, moved])).all()
+            ulps.append(gap / np.spacing(np.abs(pd[qi, moved]).astype(np.float32)))
+    kd, wd = np.concatenate(kd), np.concatenate(wd)
+    np.testing.assert_allclose(kd, wd, rtol=RTOL, atol=ATOL,
+                               err_msg="distances of common frontier ids")
+    return (float(same.mean()), float(tie_order.mean()),
+            float(np.abs(kd - wd).max(initial=0.0)), np.concatenate(ulps))
+
+
+def run_beam_cases(torch):
+    """Each beam case: the kernel against its plain version on the card."""
+    from rangefilteredann_tpu_torch.ops.beam import beam_search_inline, beam_search_plain
+
+    rng = np.random.default_rng(4321)
+    worst = 0.0
+    for name, metric, r, beam, limit, blocks, inactive, w in beam_cases():
+        args, (data, queries) = beam_case_inputs(torch, rng, metric, r, blocks, inactive, w)
+        kw = dict(beam=beam, limit=limit, metric=metric)
+        got = beam_search_inline(*args, **kw)
+        plain = beam_search_plain(*args, **kw)
+        torch.cuda.synchronize()
+        gi, gd, gv, gc = (x.cpu().numpy() for x in got)
+        pi, pd, pv, pc = (x.cpu().numpy() for x in plain)
+        if (gv[~args[-1].cpu().numpy()] != 0).any():
+            raise AssertionError(f"case {name}: an inactive query visited nodes")
+        if blocks != "int8scale":
+            np.testing.assert_array_equal(gi, pi, err_msg=f"case {name}: ids")
+            np.testing.assert_array_equal(gv, pv, err_msg=f"case {name}: n_vis")
+            np.testing.assert_array_equal(gc, pc, err_msg=f"case {name}: cmps")
+            fin = np.isfinite(pd)
+            np.testing.assert_array_equal(np.isfinite(gd), fin)
+            np.testing.assert_allclose(gd[fin], pd[fin], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"case {name}: dists")
+            err = float(np.abs(gd[fin] - pd[fin]).max(initial=0.0))
+            worst = max(worst, err)
+            log(f"beam case {name}: ok, identical ids/n_vis/cmps, max|dd|={err:.3g}, "
+                f"mean n_vis {gv.mean():.1f}")
+            continue
+        # int8 with a scale: approximate by design (tests/test_pallas_beam.py)
+        mism = float((gi != pi).mean())
+        if mism >= 0.02 or not np.array_equal(np.isfinite(gd), gi != EMPTY_ID_NP):
+            raise AssertionError(f"case {name}: {mism:.4%} ids differ")
+        d_exact = -(queries @ data.T) if metric == "mips" else (
+            np.einsum("ij,ij->i", data, data)[None, :] - 2.0 * (queries @ data.T))
+        oracle = np.argsort(d_exact, axis=1, kind="stable")[:, :10]
+
+        def recall(ids):
+            hits = 0.0
+            for qi in range(len(queries) - inactive):
+                cand = ids[qi][ids[qi] != EMPTY_ID_NP]
+                top = cand[np.argsort(d_exact[qi, cand], kind="stable")[:10]]
+                hits += len(set(top.tolist()) & set(oracle[qi].tolist())) / 10
+            return hits / (len(queries) - inactive)
+
+        rec_got, rec_plain = recall(gi), recall(pi)
+        if rec_got < rec_plain - 0.01 or np.abs(gv - pv).mean() >= 2 or \
+                np.abs(gc - pc).mean() >= 128:
+            raise AssertionError(f"case {name}: recall {rec_got} vs plain {rec_plain}")
+        log(f"beam case {name}: ok at recall level, {mism:.4%} ids differ, "
+            f"recall@10 {rec_got} (plain {rec_plain})")
+    return worst
+
+
+EMPTY_ID_NP = np.int32(2**31 - 1)
+
+
 # --------------------------------------------------------------- main path --
 
 def make_data(seed, n, d, nq, clusters=1000, noise=0.35):
@@ -195,9 +382,11 @@ class Oracle:
         self.x = points[self.order].astype(np.float64)
         self.norms = np.einsum("nd,nd->n", self.x, self.x)
 
-    def window(self, lo, hi):
+    def window(self, lo, hi, hi_side="left"):
+        """[start, end) of the labels in [lo, hi) (hi_side "left", the
+        prefilter's window) or [lo, hi] ("right", the postfilter's)."""
         return (np.searchsorted(self.ls, lo, side="left"),
-                np.searchsorted(self.ls, hi, side="left"))
+                np.searchsorted(self.ls, hi, side=hi_side))
 
     def dist(self, q, ids):
         """float64 squared L2 distances from q to the points of original ids."""
@@ -205,8 +394,8 @@ class Oracle:
         p = self.pos[ids]
         return self.norms[p] - 2.0 * (self.x[p] @ q64) + q64 @ q64
 
-    def topk(self, q, lo, hi, k):
-        s, e = self.window(lo, hi)
+    def topk(self, q, lo, hi, k, hi_side="left"):
+        s, e = self.window(lo, hi, hi_side)
         if e <= s:
             return np.zeros(0, np.int64), np.zeros(0)
         q64 = q.astype(np.float64)
@@ -227,10 +416,15 @@ class Oracle:
 TIE_EPS = 1e-3
 
 
-def check_results(oracle, queries, filters, ids, dists, k, sample):
+FLT_MAX = np.finfo(np.float32).max
+
+
+def check_results(oracle, queries, filters, ids, dists, k, sample, hi_side="left"):
     """(recall, set-overlap recall, notes) of a batch's results on `sample`
-    queries. Every returned id must lie in its query's window, and every
-    distance must match the oracle's distance of that id."""
+    queries. Results must be the returned points first, padding (uint32 -1,
+    FLT_MAX) after them, no more points than the window holds; every returned
+    id must lie in its query's window, and every distance must match the
+    oracle's distance of that id."""
     if ids.shape != (len(queries), k) or dists.shape != (len(queries), k):
         raise AssertionError(f"result shapes {ids.shape} {dists.shape}")
     if not np.isfinite(dists).all():
@@ -238,21 +432,24 @@ def check_results(oracle, queries, filters, ids, dists, k, sample):
     hits = overlap = 0.0
     notes = []
     for qi in sample:
-        want_i, want_d = oracle.topk(queries[qi], *filters[qi], k)
+        want_i, want_d = oracle.topk(queries[qi], *filters[qi], k, hi_side)
         kk = len(want_i)
-        if not ((ids[qi, kk:] == np.uint32(0xFFFFFFFF)).all()
-                and (dists[qi, kk:] == np.finfo(np.float32).max).all()):
-            raise AssertionError(f"query {qi}: slots past its {kk} points are not padding")
+        real = dists[qi] < FLT_MAX
+        nr = int(real.sum())
+        if (nr > kk or not real[:nr].all()
+                or not (ids[qi, nr:] == np.uint32(0xFFFFFFFF)).all()):
+            raise AssertionError(f"query {qi}: {nr} results for a window of {kk} "
+                                 "points, or padding out of place")
         if kk == 0:  # an empty window, rightly answered with padding only
             hits += 1.0
             overlap += 1.0
             continue
-        got = ids[qi, :kk].astype(np.int64)
-        s, e = oracle.window(*filters[qi])
+        got = ids[qi, :nr].astype(np.int64)
+        s, e = oracle.window(*filters[qi], hi_side)
         if not ((oracle.pos[got] >= s) & (oracle.pos[got] < e)).all():
             raise AssertionError(f"query {qi}: a returned id lies outside its window")
         got_d = oracle.dist(queries[qi], got)
-        np.testing.assert_allclose(dists[qi, :kk], got_d, rtol=1e-4, atol=1e-2)
+        np.testing.assert_allclose(dists[qi, :nr], got_d, rtol=1e-4, atol=1e-2)
         overlap += len(set(want_i.tolist()) & set(got.tolist())) / kk
         hits += (got_d <= want_d[-1] + TIE_EPS).sum() / kk
         if set(want_i.tolist()) != set(got.tolist()):
@@ -327,44 +524,56 @@ def scan_work(args, kw):
     return flops, nbytes, streamed * d * elem
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--nq", type=int, default=10_240)
-    args = ap.parse_args()
+def expanded_nodes(torch, args, kw, out):
+    """Distinct nodes that one call's queries expand, all queries together,
+    from the plain version's visit lists on the same inputs (its n_vis
+    equals the kernel's on all but a few queries, which the caller checks).
+    Queries that start at one vertex share their first expansions, so this
+    is far below the sum of n_vis."""
+    from rangefilteredann_tpu_torch.ops.beam_search import batched_beam_search
+    from rangefilteredann_tpu_torch.ops.topk import EMPTY_ID
 
-    import torch
+    vecs, nbrs, nrm, scale, queries, starts, d0, active = args
+    res = batched_beam_search(
+        None, None, nbrs, None, queries, starts, beam=kw["beam"], k=0, cut=1.35,
+        limit=kw["limit"], metric=kw["metric"], active_in=active, expand=1,
+        identity_map=True, nbr_vecs=vecs, nbr_norms=nrm, nbr_scale=scale, d0=d0,
+        return_visited=True, visited_cap=int(out[2].max()) + 64)
+    v = res.visited_ids
+    return int(torch.unique(v[v != EMPTY_ID]).numel())
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
-        return 2
+
+def beam_work(args, out, nodes):
+    """Operations and bytes the beam search must do for one call: the block
+    of each of the `nodes` distinct expanded nodes (R rows of w elements,
+    R ids, R norms, its scale) read once however many queries expand it,
+    each query with its start, d0 and flag read once, the frontier and the
+    counters written once; 2*w flops per distance computed (the cmps of
+    every query: each query's distances are its own work)."""
+    vecs, scale = args[0], args[3]
+    _, r, w = vecs.shape
+    q, beam = out[0].shape
+    cmps = float(out[3].double().sum())
+    block = r * (w * vecs.element_size() + 8) + (4 if scale is not None else 0)
+    nbytes = nodes * block + q * (w * 4 + 9) + q * (beam * 8 + 8)
+    return cmps * 2.0 * w, nbytes
+
+
+def bound(flops, nbytes):
+    """(bound ms, "operations" or "bytes") on the H100's published peaks."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def run_prefilter_path(torch, args, worst):
+    """The prefilter main path at SIFT-1M scale. Returns the scan kernel's
+    entry of the kernels line."""
     import rangefilteredann_tpu_torch as P
-    from rangefilteredann_tpu_torch import kernels
     from rangefilteredann_tpu_torch.models import base
-    from rangefilteredann_tpu_torch.ops import scan
+    from rangefilteredann_tpu_torch.ops import beam, scan
     from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
 
-    # 1. the card
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-
-    # 2. build every kernel
-    t0 = time.time()
-    out = kernels.build(kernels.SOURCES, verbose=True)
-    log(f"build: {', '.join(kernels.SOURCES)} in {time.time() - t0:.2f} s")
-    for name, text in out.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
-
-    # 3. each kernel against its plain version
-    t0 = time.time()
-    worst = run_kernel_cases(torch)
-    log(f"kernel cases: all passed in {time.time() - t0:.1f} s, max|dd|={worst:.3g}")
-
-    # 4. the main path at SIFT-1M scale
     t0 = time.time()
     points, labels, queries, batches = make_data(args.seed, args.n, D, args.nq)
     log(f"data: {args.n} x {D} fp32, {args.nq} queries, made in {time.time() - t0:.1f} s")
@@ -383,17 +592,18 @@ def main() -> int:
 
     base.scan_topk = recording_scan
     scan_inputs, results = {}, {}
-    scan.SCAN_LAUNCHES = 0  # every kernel's count, just before the main path
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
     for name, filters in batches.items():
         captured.pop("last", None)
         results[name] = idx.batch_search(queries, filters, args.nq, qparams)
         if "last" in captured:
             scan_inputs[name] = captured["last"]
-    launches = scan.SCAN_LAUNCHES  # just after
+    launches, beam_launches = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
     base.scan_topk = real_scan
-    log(f"main path: scan_topk launches = {launches} over {len(batches)} batch_search calls")
+    log(f"prefilter main path: scan_topk launches = {launches}, beam_search launches = "
+        f"{beam_launches} over {len(batches)} batch_search calls")
     if launches < 1:
-        raise AssertionError("the main path never launched the scan kernel")
+        raise AssertionError("the prefilter main path never launched the scan kernel")
 
     t0 = time.time()
     oracle = Oracle(points, labels)
@@ -445,20 +655,16 @@ def main() -> int:
         plain_ms = cuda_time_ms(
             torch, lambda: scan_bruteforce(data, norms, q_dev, st, en, k, metric), 1)
         flops, nbytes, streamed = scan_work(a, kw)
-        t_ops = flops / PEAK_FP32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = bound(flops, nbytes)
         timed[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
         log(f"scan kernel {name}: {kernel_ms:.3f} ms (plain {plain_ms:.3f} ms); "
             f"work {flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB once "
             f"({streamed / 1e9:.3f} GB streamed by 32-query blocks); bound {bound_ms:.3f} ms "
-            f"by {bound_by} ({t_ops:.3f} ms ops, {t_bytes:.4f} ms bytes); "
+            f"by {bound_by} ({flops / PEAK_FP32_FLOPS * 1e3:.3f} ms ops, "
+            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms bytes); "
             f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
     kernel_ms, plain_ms, bound_ms, bound_by = timed["frac2^-2"]
-
-    # 5. inventory
-    print(json.dumps({"kernels": [{
+    return {
         "name": "scan_topk",
         "route": "cuda",
         "source": "rangefilteredann_tpu_torch/csrc/scan_topk.cu",
@@ -470,8 +676,185 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
-    # 6. the card, then the result
+    }
+
+
+def run_graph_path(torch, args, worst):
+    """The graph main path at bench.py's postfilter scale. Returns the beam
+    kernel's entry of the kernels line."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    t0 = time.time()
+    points, labels, queries, batches = make_data(args.seed, args.graph_n, D, args.graph_nq)
+    filters = batches["frac2^-2"]
+    log(f"graph data: {args.graph_n} x {D} fp32, {args.graph_nq} queries, made in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    idx = P.PostfilterVamanaIndex(points, labels, P.BuildParams(R=48, L=100, alpha=1.2))
+    torch.cuda.synchronize()
+    g = idx._graph
+    deg = (g.nbrs_host >= 0).sum(axis=1)
+    log(f"graph index: PostfilterVamanaIndex on {idx.device} (R=48, L=100, alpha=1.2) "
+        f"built in {time.time() - t0:.1f} s; degree mean {deg.mean():.2f} max {deg.max()}; "
+        f"inline blocks {list(g.nbr_vecs.shape) if g.nbr_vecs is not None else None} "
+        f"{g.inline_dtype}")
+    if g.inline_dtype != torch.float32:
+        raise AssertionError(f"inline blocks are {g.inline_dtype}, not float32")
+    qparams = P.build_query_params(K, 80, final_beam_multiply=2)
+
+    captured, plain_calls = [], [0]
+    real_inline, real_plain = pv.beam_search_inline, pv.batched_beam_search
+
+    def recording_inline(*a, **kw):  # keeps the kernel's inputs and outputs
+        out = real_inline(*a, **kw)
+        captured.append((a, kw, out))
+        return out
+
+    def counting_plain(*a, **kw):  # query-mode searches that missed the kernel
+        plain_calls[0] += 1
+        return real_plain(*a, **kw)
+
+    pv.beam_search_inline, pv.batched_beam_search = recording_inline, counting_plain
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+    ids, dists = idx.batch_search(queries, filters, args.graph_nq, qparams)
+    launches, scan_launches = beam.BEAM_LAUNCHES, scan.SCAN_LAUNCHES  # just after
+    pv.beam_search_inline, pv.batched_beam_search = real_inline, real_plain
+    log(f"graph main path: beam_search launches = {launches} "
+        f"(beams {[kw['beam'] for _, kw, _ in captured]}), scan_topk launches = "
+        f"{scan_launches}, query-mode batched_beam_search calls = {plain_calls[0]}")
+    if launches < 2 or plain_calls[0] != 0:
+        raise AssertionError("the graph main path did not run its searches in the kernel")
+
+    t0 = time.time()
+    oracle = Oracle(points, labels)
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(args.graph_nq, size=min(SAMPLE, args.graph_nq), replace=False)
+    rec, overlap, notes = check_results(oracle, queries, filters, ids, dists, K, sample,
+                                        hi_side="right")
+    log(f"graph recall@{K} frac2^-2 beam 80 x2: {rec} on {len(sample)} queries "
+        f"(id-set overlap {overlap}); oracle checks in {time.time() - t0:.1f} s")
+    if rec < 0.99:
+        raise AssertionError(f"graph recall@{K} = {rec} < 0.99")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        idx.batch_search(queries, filters, args.graph_nq, qparams)
+        walls.append(time.perf_counter() - t0)
+    best = min(walls)
+    log(f"graph timing frac2^-2: best-of-3 wall {best * 1e3:.3f} ms, QPS "
+        f"{args.graph_nq / best:.1f}, runs {[round(w * 1e3, 3) for w in walls]}")
+    wall, dev, rows = device_breakdown(
+        torch, lambda: idx.batch_search(queries, filters, args.graph_nq, qparams))
+    log(f"graph profile frac2^-2: wall {wall:.3f} ms, device busy {dev:.3f} ms "
+        f"({100 * dev / wall:.1f}%), " + "; ".join(f"{k} {ms:.3f} ms" for k, ms in rows))
+
+    # the kernel on each of the main path's own launches: against its plain
+    # version (identical frontiers, distances of common ids), then timed
+    # alone by CUDA events beside the plain version. The kernels line sums
+    # the launches of the one batch_search.
+    # Frontiers identical id by id are not required: the kernel's FMA chain
+    # and the plain version's bmm sum in other orders, and entries whose
+    # distances are that close may sort either way. The search itself
+    # (which nodes it expands, how many distances) must agree.
+    tot = np.zeros(4)  # kernel ms, plain ms, flops, bytes
+    for a, kw, out in captured:
+        plain = beam.beam_search_plain(*a, **kw)
+        torch.cuda.synchronize()
+        share, share_ties, err, ulps = frontier_agreement(out, plain)
+        same_counts = float(((out[2] == plain[2]) & (out[3] == plain[3])).double().mean())
+        worst = max(worst, err)
+        kernel_ms = cuda_time_ms(torch, lambda: beam.beam_search_inline(*a, **kw), 3)
+        plain_ms = cuda_time_ms(torch, lambda: beam.beam_search_plain(*a, **kw), 1)
+        nodes = expanded_nodes(torch, a, kw, out)
+        flops, nbytes = beam_work(a, out, nodes)
+        bound_ms, bound_by = bound(flops, nbytes)
+        tot += (kernel_ms, plain_ms, flops, nbytes)
+        q = a[4].shape[0]
+        sum_vis = int(out[2].double().sum())
+        log(f"beam kernel beam {kw['beam']} [{q} queries]: {kernel_ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms); identical frontiers {share:.6f} id by id, "
+            f"{share_ties:.6f} up to near-tie order; identical n_vis and "
+            f"cmps {same_counts:.6f}, max|dd| over common ids {err:.3g}; entries "
+            f"ordered otherwise: {len(ulps)}, their plain distances "
+            f"{np.max(ulps, initial=0):.0f} ulps apart at most, median "
+            f"{np.median(ulps) if len(ulps) else 0:.0f}; mean n_vis "
+            f"{sum_vis / q:.1f}; distinct nodes expanded {nodes} of {a[1].shape[0]} "
+            f"(sum of n_vis {sum_vis}); work {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB once; bound {bound_ms:.3f} ms by {bound_by}; "
+            f"{nbytes / kernel_ms / 1e6:.1f} GB/s of distinct bytes achieved")
+        if share_ties < 0.99 or same_counts < 0.999:
+            raise AssertionError(
+                f"frontiers equal to the plain version's up to near-tie order on "
+                f"{share_ties:.4%} of queries, n_vis and cmps on {same_counts:.4%}")
+    bound_ms, bound_by = bound(tot[2], tot[3])
+    log(f"beam kernel per batch_search: {tot[0]:.3f} ms over {len(captured)} launches "
+        f"(plain {tot[1]:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}")
+    return {
+        "name": "beam_search",
+        "route": "cuda",
+        "source": "rangefilteredann_tpu_torch/csrc/beam_search.cu",
+        "replaces": "rangefilteredann_tpu/ops/pallas_beam.py:133",
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": float(tot[0]),
+        "plain_ms": float(tot[1]),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--nq", type=int, default=10_240)
+    ap.add_argument("--graph-n", type=int, default=200_000)
+    ap.add_argument("--graph-nq", type=int, default=10_240)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
+        return 2
+    from rangefilteredann_tpu_torch import kernels
+
+    # 1. the card
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+
+    # 2. build every kernel, one nvcc each, all at once
+    t0 = time.time()
+    out = kernels.build(kernels.SOURCES, verbose=True)
+    log(f"build: {', '.join(kernels.SOURCES)} in {time.time() - t0:.2f} s")
+    for name, text in out.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3. each kernel against its plain version
+    t0 = time.time()
+    scan_worst = run_kernel_cases(torch)
+    log(f"scan kernel cases: all passed in {time.time() - t0:.1f} s, "
+        f"max|dd|={scan_worst:.3g}")
+    t0 = time.time()
+    beam_worst = run_beam_cases(torch)
+    log(f"beam kernel cases: all passed in {time.time() - t0:.1f} s, "
+        f"max|dd|={beam_worst:.3g}")
+
+    # 4-5. the main paths
+    entries = [run_prefilter_path(torch, args, scan_worst)]
+    torch.cuda.empty_cache()
+    entries.append(run_graph_path(torch, args, beam_worst))
+
+    # 6. inventory
+    print(json.dumps({"kernels": entries}), flush=True)
+    # 7. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -4,7 +4,10 @@ A second package beside the JAX reference `rangefilteredann_tpu`, for an
 NVIDIA H100. It imports torch and numpy only, never JAX or the JAX package.
 Indices place their store on the card unless the caller passes
 `device="cpu"`. Ported so far: the exact prefilter (`PrefilterIndex`), whose
-range-masked scan runs as a hand-written CUDA kernel (csrc/scan_topk.cu).
+range-masked scan runs as a hand-written CUDA kernel (csrc/scan_topk.cu), and
+the graph postfilter (`PostfilterVamanaIndex`: Vamana build and doubling beam
+search), whose query-mode beam searches run as a hand-written CUDA kernel
+(csrc/beam_search.cu).
 """
 
 from .params import (  # noqa: F401
@@ -16,6 +19,10 @@ from .params import (  # noqa: F401
     QueryParams,
     build_query_params,
 )
-from .models import PrefilterIndex  # noqa: F401
+from .models import PostfilterVamanaIndex, PrefilterIndex  # noqa: F401
+from .wrapper import (  # noqa: F401
+    postfilter_vamana_constructor,
+    prefilter_index_constructor,
+)
 
 __version__ = "0.1.0"

@@ -1,11 +1,20 @@
-"""Carry a store built by the JAX package across to the PyTorch port.
+"""Carry state built by the JAX package across to the PyTorch port.
 
-The prefilter's "weights" are its label-sorted point store. A JAX-built
-index hands over its arrays as numpy (`np.asarray(idx._ps.data)`,
-`np.asarray(idx._ps.norms_sq)`, the PointSet's n, d, metric and norm_col,
-`idx._labels_sorted`, `idx._decoding`), and the port rebuilds the same store
-from them, bit for bit, on the device it is asked for. This module imports
-neither JAX nor the JAX package.
+Two kinds of state cross, each as numpy arrays, rebuilt bit for bit on the
+device the port is asked for. This module imports neither JAX nor the JAX
+package.
+
+  * The label-sorted point store, the prefilter's "weights": a JAX-built
+    index hands over `np.asarray(idx._ps.data)`, `np.asarray(idx._ps.norms_sq)`,
+    the PointSet's n, d, metric and norm_col, `idx._labels_sorted` and
+    `idx._decoding` (`pointset_from_arrays`, `PrefilterIndex.from_arrays`).
+  * The graph of a flat Vamana index: its adjacency `nbrs` [m, R] int32
+    (-1 padded), from `idx._graph.nbrs_host` or from a `vamana_*.npz` graph
+    cache the JAX package wrote, whose `fingerprint` the port checks with
+    the same digest (`slab_graph_from_nbrs` = `SlabGraph.from_nbrs`,
+    `load_graph_cache` = `SlabGraph.from_cache`,
+    `PostfilterVamanaIndex.from_arrays`; an index given the JAX package's
+    `cache_path` loads the same file under the same name).
 """
 
 from __future__ import annotations
@@ -13,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.vamana import SlabGraph
 from .utils.data import PointSet, canonical_metric, resolve_device
 
 
@@ -39,3 +49,9 @@ def pointset_from_arrays(data, norms_sq, n: int, d: int, metric: str,
                     norms_sq=_to_tensor(norms_sq).to(device), n=int(n),
                     d=int(d), metric=canonical_metric(metric),
                     norm_col=int(norm_col))
+
+
+# The graph's loaders live beside SlabGraph; named here as the state this
+# module carries across.
+slab_graph_from_nbrs = SlabGraph.from_nbrs
+load_graph_cache = SlabGraph.from_cache

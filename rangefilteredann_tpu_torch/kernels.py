@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("scan_topk",)
+SOURCES = ("scan_topk", "beam_search")
 
 _LOADED: "dict[str, ctypes.CDLL]" = {}
 

@@ -1,1 +1,2 @@
 from .prefilter import PrefilterIndex  # noqa: F401
+from .postfilter_vamana import PostfilterVamanaIndex  # noqa: F401

@@ -1,6 +1,8 @@
-"""Host-side machinery for the index classes: the prefilter half.
+"""Host-side machinery for the index classes.
 
-Counterpart of rangefilteredann_tpu/models/base.py:169-329 and :540. The host
+Counterpart of rangefilteredann_tpu/models/base.py:169-392, :484-537 and
+:540: the prefilter routing below, the inline-block budget of the graph
+indices (maybe_attach_inline) and their graph-cache helpers. The host
 groups a batch's queries by window width: windows up to window_gather_max()
 gather their own rows (windowed_bruteforce, grouped in power-of-two classes
 and chunked by GATHER_BYTES_BUDGET); wider windows are midpoint-sorted and go
@@ -14,6 +16,9 @@ and change no result; they are not ported.
 
 from __future__ import annotations
 
+import hashlib
+import os
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -151,6 +156,83 @@ def batched_range_bruteforce(
     return finish_range_bruteforce(launch_range_bruteforce(
         data, norms_sq, queries_padded, starts, ends, k, metric,
         norm_col=norm_col, q_rows=q_rows))
+
+
+# Device bytes allowed for a graph's inline neighbour blocks. The JAX
+# package's value, kept so that a given store picks the same inline dtype in
+# both packages (the 200k x 128 fp32 blocks take 4.9 GB). An H100 has 80 GB;
+# raising the budget there is a decision for later (ROADMAP).
+INLINE_BUDGET = int(7e9)
+
+
+def maybe_attach_inline(graph, ps) -> bool:
+    """Attach inline neighbour blocks to a graph on the card when they fit
+    INLINE_BUDGET: exact fp32 first, then bf16 (storage rounding, ~1e-3
+    relative on distances), then int8-quantized over a float store (final
+    candidates exact-reranked). Byte stores attach blocks of their own dtype
+    (exact). Does nothing for a store on the CPU, as the JAX package does
+    nothing there: the CPU tests attach inline blocks themselves."""
+    if ps.device.type == "cpu":
+        return False
+    if ps.data.dtype in (torch.int8, torch.uint8):
+        if graph.inline_bytes(ps, ps.data.dtype) <= INLINE_BUDGET:
+            graph.attach_inline(ps, ps.data.dtype)
+            return True
+        return False
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        if graph.inline_bytes(ps, dtype) <= INLINE_BUDGET:
+            if dtype != torch.float32:
+                warnings.warn(
+                    f"inline neighbour blocks attached as {dtype} (the wider "
+                    f"form exceeds INLINE_BUDGET={INLINE_BUDGET}); frontier "
+                    "distances are approximate — check graph.inline_dtype",
+                    stacklevel=2)
+            graph.attach_inline(ps, dtype)
+            return True
+    return False
+
+
+def cache_fingerprint(labels_sorted: np.ndarray,
+                      pts_sorted: np.ndarray) -> np.ndarray:
+    """Content digest stored in graph cache files beside the adjacency: a
+    sha1 of sampled label-sorted labels and points, so that a cache built
+    for other data is rebuilt, not loaded. Identical to the JAX package's,
+    so each package loads the other's caches."""
+    h = hashlib.sha1()
+    step = max(1, len(labels_sorted) // 1024)
+    h.update(np.ascontiguousarray(
+        labels_sorted[::step].astype(np.float64)).tobytes())
+    pstep = max(1, len(pts_sorted) // 256)
+    h.update(np.ascontiguousarray(
+        np.asarray(pts_sorted[::pstep, : min(8, pts_sorted.shape[1])],
+                   dtype=np.float32)).tobytes())
+    return np.frombuffer(h.digest()[:8], dtype=np.int64).copy()
+
+
+def load_cached_nbrs(fname: str, fingerprint: np.ndarray):
+    """The cached adjacency of `fname`, or None (with a warning) when its
+    digest says it was built for other data. Caches without a digest load."""
+    with np.load(fname) as z:
+        nbrs = z["nbrs"]
+        if "fingerprint" in z and not np.array_equal(z["fingerprint"], fingerprint):
+            warnings.warn(
+                f"graph cache {fname} was built for different data "
+                "(fingerprint mismatch) — rebuilding", stacklevel=2)
+            return None
+    return nbrs
+
+
+def whole_dataset_cache(cache_path, bp, label_lo, label_hi, n):
+    """The cache file of the single Vamana graph over the whole label-sorted
+    dataset, the JAX package's (and the reference's, ref:
+    src/postfilter_vamana.h:126-132) name: vamana_{L}_{R}_{alpha}_{lo}_{hi}_{n}.npz."""
+    if not cache_path:
+        return None
+    return os.path.join(
+        cache_path,
+        f"vamana_{bp.L}_{bp.R}_{bp.alpha:.6f}_{label_lo:.6f}_{label_hi:.6f}_"
+        f"{n}.npz",
+    )
 
 
 def finalize_output(

@@ -1,0 +1,365 @@
+"""PostfilterVamanaIndex — Vamana graph search with label postfiltering.
+
+Counterpart of rangefilteredann_tpu/models/postfilter_vamana.py (ref:
+src/postfilter_vamana.h:31-255): one Vamana graph over the label-sorted
+points; each query runs beam searches with beam doubling — filter the
+frontier to the label window, double the beam until >= k survive or the cap
+is hit — then one final search at beam * final_beam_multiply. The host
+regroups unfinished queries by their next beam, so every launch is one
+batch at one beam.
+
+On the card, every query-mode search the beam kernel covers (ops/beam.py,
+kernel_covers) goes to the kernel; the rest, and the build's searches, take
+ops/beam_search.batched_beam_search. The JAX package's mesh sharding and its
+device query cache (a remote-TPU-link workaround) are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..convert import pointset_from_arrays
+from ..ops.beam import beam_search_inline, kernel_covers, start_distances
+from ..ops.beam_search import (
+    BeamResult,
+    batched_beam_search,
+    default_expand,
+    exact_rerank,
+    window_filter_topk,
+)
+from ..ops.topk import EMPTY_ID
+from ..params import BuildParams, QueryParams
+from ..utils.data import first_geq, make_pointset, pad_queries, sort_by_labels
+from .base import (
+    batched_range_bruteforce,
+    cache_fingerprint,
+    finalize_output,
+    maybe_attach_inline,
+    whole_dataset_cache,
+)
+from .vamana import SlabGraph, build_vamana_graph
+
+# Largest beam a doubling search runs; the JAX package's clamp around a TPU
+# fault, which defines its results and is kept here. Queries whose doubling
+# exhausts it while qp.postfiltering_max_beam allows more take the exact
+# scan over their label window instead (doubling_postfilter).
+MAX_SAFE_BEAM = 2048
+
+# Launch each round-1 beam class's final pass (beam * final_beam_multiply)
+# before knowing whether the class satisfies, and reuse it as the doubled
+# search when the multiply is 2. Results are bit-identical either way.
+SPECULATE = True
+
+# Candidates past k that a quantized-inline search reranks exactly.
+RERANK_SLACK = 8
+
+
+def _run_beam_batch(ps, graph: SlabGraph, queries_padded: np.ndarray,
+                    starts: np.ndarray, beam: int, limit: int, metric: str,
+                    degree_limit: int = 0):
+    """One batched search at a fixed beam. Returns (BeamResult, the queries
+    on the device)."""
+    dev = ps.device
+    qs = torch.from_numpy(np.ascontiguousarray(queries_padded, dtype=np.float32)).to(dev)
+    st = torch.from_numpy(np.ascontiguousarray(starts, dtype=np.int32)).to(dev)
+    act = torch.ones(len(starts), dtype=torch.bool, device=dev)
+    beam = int(beam)
+    if kernel_covers(graph, beam, degree_limit):
+        d0 = start_distances(ps, graph, qs, st, metric)
+        w = graph.nbr_vecs.shape[2]
+        f_ids, f_d, n_vis, cmps = beam_search_inline(
+            graph.nbr_vecs, graph.nbrs_dev, graph.nbr_norms, graph.nbr_scale,
+            qs[:, :w], st, d0, act, beam=beam, limit=int(limit), metric=metric)
+        return BeamResult(f_ids, f_d, n_vis, cmps, f_ids[:, :0], f_d[:, :0]), qs
+    res = batched_beam_search(
+        ps.data, ps.norms_sq, graph.nbrs_dev, graph.slab_to_global_dev, qs, st,
+        beam=beam, k=0, cut=1.35, limit=int(limit), metric=metric,
+        active_in=act, expand=default_expand(beam),
+        degree_limit=int(degree_limit),
+        norm_col=ps.norm_col if ps.norm_col >= 0 else None,
+        identity_map=graph.identity_s2g, nbr_vecs=graph.nbr_vecs,
+        nbr_norms=graph.nbr_norms, nbr_scale=graph.nbr_scale,
+    )
+    return res, qs
+
+
+def _dl(qp, graph) -> int:
+    """Effective degree limit (0 = expand full adjacency rows)."""
+    return qp.degree_limit if qp.degree_limit < graph.R else 0
+
+
+def doubling_postfilter(
+    ps,
+    graph: SlabGraph,
+    queries_padded: np.ndarray,  # [Q, d_pad]
+    starts: np.ndarray,  # [Q] slab start ids
+    win_lo: np.ndarray,  # [Q] global sorted-id window (inclusive start)
+    win_hi: np.ndarray,  # [Q] (exclusive end)
+    qp: QueryParams,
+    metric: str,
+    stats=None,  # optional QueryStats; counters accumulate per source query
+    stat_ids: Optional[np.ndarray] = None,  # [Q] source-query ids for stats
+    q_rows: Optional[np.ndarray] = None,  # [Q] task -> row of queries_padded
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched beam-doubling postfilter query (ref: postfilter_vamana.h:141-188),
+    the JAX package's schedule step for step.
+
+    Returns (ids [Q, k] global sorted ids, dists [Q, k]) — inf/EMPTY padded."""
+    rows_of = (lambda s: q_rows[s]) if q_rows is not None else (lambda s: s)
+    nq = len(starts)
+    k = qp.k
+    max_beam = min(qp.postfiltering_max_beam, MAX_SAFE_BEAM)
+    exact_tail = qp.postfiltering_max_beam > max_beam
+    capped = np.zeros(nq, dtype=bool)  # done by the cap, not by k survivors
+    # do-while: at least one search always runs, at the cap if the requested
+    # beam meets it (ref: postfilter_vamana.h:161-172)
+    cur_beam = np.minimum(np.full(nq, qp.beamSize, dtype=np.int64), max_beam)
+    res_i = np.full((nq, k), int(EMPTY_ID), dtype=np.int64)
+    res_d = np.full((nq, k), np.inf, dtype=np.float32)
+    done = np.zeros(nq, dtype=bool)
+    dev = ps.device
+    norm_col = ps.norm_col if ps.norm_col >= 0 else None
+    # quantized-inline frontiers carry int8-rounded distances: filter a
+    # k + slack superset and rerank it exactly
+    quant = graph.nbr_scale is not None
+    stat_buf = []  # (ids_for, row_idx, num_visited, dist_cmps), fetched once
+
+    def _collect(sel, idx, res):
+        if stats is not None and len(idx):
+            ids_for = stat_ids[sel] if stat_ids is not None else sel
+            stat_buf.append((ids_for, idx, res.num_visited, res.dist_cmps))
+
+    def _search_and_filter(sel, b, collect_stats=True):
+        """Enqueue one search + window filter; returns device tensors
+        (counts, gids, dists) and the BeamResult, fetching nothing."""
+        res, qs_dev = _run_beam_batch(
+            ps, graph, queries_padded[rows_of(sel)], starts[sel], b, qp.limit,
+            metric, degree_limit=_dl(qp, graph))
+        if collect_stats:
+            _collect(sel, np.arange(len(sel)), res)
+        wl = torch.from_numpy(win_lo[sel].astype(np.int32)).to(dev)
+        wh = torch.from_numpy(win_hi[sel].astype(np.int32)).to(dev)
+        counts, g, d = window_filter_topk(
+            res.frontier_ids, res.frontier_dists, graph.slab_to_global_dev,
+            wl, wh, k + RERANK_SLACK if quant else k)
+        if quant:
+            g, d = exact_rerank(ps.data, ps.norms_sq, qs_dev, g, k, metric,
+                                norm_col=norm_col)
+        return (counts, g, d), res
+
+    def _fetch(fut):
+        return tuple(t.cpu().numpy() for t in fut)
+
+    def _advance(sel, counts, ti, td):
+        """Take a search's results; the queries with < k survivors double."""
+        res_i[sel] = ti.astype(np.int64)
+        res_d[sel] = td
+        enough = counts >= k
+        done[sel[enough]] = True
+        grow = sel[~enough]
+        cur_beam[grow] *= 2
+        hit_cap = cur_beam[grow] >= max_beam
+        done[grow] |= hit_cap
+        capped[grow[hit_cap]] = True
+        return enough
+
+    first_round = True
+    # round-1 speculative finals at twice the beam (fm == 2) are the doubled
+    # search the queries that fail need next: reuse them (the search is
+    # per-query deterministic, so a relaunch would be bit-identical)
+    reuse: dict = {}  # next beam -> (sel, counts, ids, dists, res)
+    while not done.all():
+        for b, (sel_r, counts_r, ti_r, td_r, s_res) in list(reuse.items()):
+            reuse.pop(b)
+            live = ~done[sel_r] & (cur_beam[sel_r] == b)
+            if not live.any():
+                continue
+            sub = np.nonzero(live)[0]
+            _advance(sel_r[sub], counts_r[sub], ti_r[sub], td_r[sub])
+            _collect(sel_r, sub, s_res)
+        beams = np.unique(cur_beam[~done])
+        # enqueue every beam class and its speculative final pass before any
+        # fetch (ref semantics: the final search always runs after the loop,
+        # postfilter_vamana.h:173-181)
+        launches, spec = [], {}
+        for b in beams:
+            sel = np.nonzero(~done & (cur_beam == b))[0]
+            fut, _ = _search_and_filter(sel, b)
+            launches.append((sel, b, fut))
+            fb = min(b * qp.final_beam_multiply, max_beam)
+            if SPECULATE and fb > b and (first_round or fb == 2 * b):
+                s_fut, s_res = _search_and_filter(sel, fb, collect_stats=False)
+                spec[b] = (fb, s_fut, s_res)
+        for sel, b, fut in launches:
+            enough = _advance(sel, *_fetch(fut))
+            if b in spec:  # speculative final for this beam class (same sel)
+                fb, s_fut, s_res = spec[b]
+                counts_s, ti_s, td_s = _fetch(s_fut)
+                sat = np.nonzero(enough)[0]
+                res_i[sel[sat]] = ti_s[sat].astype(np.int64)
+                res_d[sel[sat]] = td_s[sat]
+                cur_beam[sel[sat]] = -fb  # final already applied
+                _collect(sel, sat, s_res)
+                if fb == 2 * b and not enough.all():
+                    reuse[fb] = (sel, counts_s, ti_s, td_s, s_res)
+        first_round = False
+    # exact-scan tail: queries that exhausted the cap while the caller's
+    # postfiltering_max_beam allows more get the exact window top-k
+    if exact_tail and capped.any():
+        sel = np.nonzero(capped)[0]
+        bf_d, bf_i = batched_range_bruteforce(
+            ps.data, ps.norms_sq, queries_padded,
+            win_lo[sel].astype(np.int64), win_hi[sel].astype(np.int64),
+            k, metric, norm_col=norm_col, q_rows=rows_of(sel))
+        res_i[sel] = bf_i
+        res_d[sel] = bf_d
+        cur_beam[sel] = -1  # exact: no final pass
+        if stats is not None:
+            ids_for = stat_ids[sel] if stat_ids is not None else sel
+            stats.increment_dist(ids_for, np.maximum(win_hi[sel] - win_lo[sel], 0))
+    # final pass at beam * final_beam_multiply (ref: postfilter_vamana.h:173-181)
+    # for queries whose speculative final did not apply
+    final_beam = np.minimum(cur_beam * qp.final_beam_multiply, max_beam)
+    needs_final = (final_beam > cur_beam) & (cur_beam >= 0)
+    launches = []
+    for b in np.unique(final_beam[needs_final]):
+        sel = np.nonzero(needs_final & (final_beam == b))[0]
+        launches.append((sel, _search_and_filter(sel, b)[0]))
+    for sel, fut in launches:
+        _, ti, td = _fetch(fut)
+        res_i[sel] = ti.astype(np.int64)
+        res_d[sel] = td
+    if stats is not None:
+        for ids_for, idx, nv, dc in stat_buf:
+            stats.increment_visited(ids_for[idx], nv.cpu().numpy()[idx])
+            stats.increment_dist(ids_for[idx], dc.cpu().numpy()[idx])
+    return res_i, res_d
+
+
+def _start_vertex(pts_sorted: np.ndarray, start_point: str) -> int:
+    """Vertex 0 (reference parity, ref: postfilter_vamana.h:226-227) or the
+    medoid: the point closest to the centroid, in label-sorted order."""
+    if start_point == "zero":
+        return 0
+    if start_point == "medoid":
+        mean = pts_sorted.astype(np.float64).mean(axis=0)
+        d = (np.einsum("ij,ij->i", pts_sorted, pts_sorted)
+             - 2.0 * (pts_sorted @ mean))
+        return int(np.argmin(d))
+    raise ValueError(f"start_point must be zero|medoid: {start_point}")
+
+
+class PostfilterVamanaIndex:
+    """Whole-dataset Vamana + doubling postfilter (the 'postfiltering' method).
+
+    `device` places the store and the graph: None means the card ("cuda"),
+    and raises where there is none; device="cpu" runs the plain PyTorch
+    path. `start_point` ("zero" or "medoid") acts at query time only."""
+
+    def __init__(
+        self,
+        points: np.ndarray,
+        filter_values: np.ndarray,
+        build_params: Optional[BuildParams] = None,
+        metric: str = "Euclidian",
+        *,
+        seed: int = 0,
+        require_cache: bool = False,
+        start_point: str = "zero",
+        device=None,
+    ):
+        bp = build_params or BuildParams()
+        points = np.asarray(points)
+        pts_sorted, self._labels_sorted, self._decoding = sort_by_labels(
+            points, np.asarray(filter_values))
+        self._start = _start_vertex(pts_sorted, start_point)
+        self._ps = make_pointset(pts_sorted, metric, device=device)
+        self._fp = cache_fingerprint(self._labels_sorted, pts_sorted)
+        self._graph = self._load_or_build(bp, seed, require_cache)
+        maybe_attach_inline(self._graph, self._ps)
+
+    @classmethod
+    def from_arrays(cls, data, norms_sq, n, d, metric, norm_col, labels_sorted,
+                    decoding, nbrs, start: int = 0,
+                    device=None) -> "PostfilterVamanaIndex":
+        """An index over an existing label-sorted store and graph, without
+        a build: the arrays of a JAX-built PostfilterVamanaIndex (its
+        store's arrays as for PrefilterIndex.from_arrays, `_graph.nbrs_host`,
+        `_start`) given as numpy."""
+        self = cls.__new__(cls)
+        self._ps = pointset_from_arrays(data, norms_sq, n, d, metric, norm_col,
+                                        device)
+        self._labels_sorted = np.asarray(labels_sorted, dtype=np.float64)
+        self._decoding = np.asarray(decoding, dtype=np.int64)
+        self._graph = SlabGraph.from_nbrs(nbrs, device)
+        self._start = int(start)
+        maybe_attach_inline(self._graph, self._ps)
+        return self
+
+    @property
+    def metric(self) -> str:
+        return self._ps.metric
+
+    @property
+    def device(self):
+        return self._ps.device
+
+    # --- graph cache (ref: postfilter_vamana.h:54-79,126-138) ---
+    def _cache_file(self, bp: BuildParams) -> Optional[str]:
+        return whole_dataset_cache(
+            bp.cache_path, bp, float(self._labels_sorted[0]),
+            float(self._labels_sorted[-1]), self._ps.n)
+
+    def _load_or_build(self, bp: BuildParams, seed: int,
+                       require_cache: bool) -> SlabGraph:
+        n = self._ps.n
+        fname = self._cache_file(bp)
+        if fname and os.path.exists(fname):
+            g = SlabGraph.from_cache(fname, self._fp, self._ps.device)
+            if g is not None:
+                return g
+        if require_cache:
+            raise FileNotFoundError(
+                f"require_cache: graph cache absent or fingerprint-mismatched"
+                f" ({fname})")
+        if fname:
+            os.makedirs(os.path.dirname(fname), exist_ok=True)
+        # the build checkpoints beside the cache file and resumes from it
+        g = build_vamana_graph(
+            self._ps, np.arange(n, dtype=np.int64),
+            np.array([0, n], dtype=np.int64), bp, seed=seed,
+            checkpoint_path=fname + ".ckpt.npz" if fname else None)
+        if fname:
+            np.savez_compressed(fname, nbrs=g.nbrs_host, fingerprint=self._fp)
+        return g
+
+    def batch_search(
+        self,
+        queries: np.ndarray,
+        filters: Sequence[Tuple[float, float]],
+        num_queries: int,
+        query_params: QueryParams,
+        stats=None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (ids [nq, k] uint32 original ids, dists [nq, k] f32).
+        Points with lo <= label <= hi are candidates: the window's upper end
+        is inclusive here (ref: postfilter_vamana.h:236-237), unlike the
+        prefilter's."""
+        queries = np.asarray(queries, dtype=np.float32)[:num_queries]
+        filters = np.asarray(filters, dtype=np.float64)[:num_queries]
+        qp_pad = pad_queries(queries, self._ps.d, self._ps.d_pad)
+        q_norms = np.einsum("qd,qd->q", queries, queries)
+        win_lo = first_geq(self._labels_sorted, filters[:, 0])
+        win_hi = np.maximum(
+            first_geq(self._labels_sorted, filters[:, 1]),
+            np.searchsorted(self._labels_sorted, filters[:, 1], side="right"))
+        starts = np.full(num_queries, self._start, dtype=np.int32)
+        ids, dists = doubling_postfilter(
+            self._ps, self._graph, qp_pad, starts, win_lo, win_hi,
+            query_params, self._ps.metric, stats=stats)
+        return finalize_output(dists, ids, self._decoding, q_norms,
+                               self._ps.metric, pad_id=-1)

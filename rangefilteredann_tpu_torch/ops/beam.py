@@ -1,0 +1,185 @@
+"""Beam search over inline neighbour blocks on the card: the wrapper of
+csrc/beam_search.cu.
+
+Counterpart of rangefilteredann_tpu/ops/pallas_beam.py (the Pallas kernel
+`_beam_kernel` this hand-written CUDA kernel replaces; the kernel's source
+carries the note on its bound and design) and of `pallas_beam_search`
+(ops/beam_search.py:321 there), whose start distance `start_distances` here
+computes. The contract is the plain version's, `beam_search_plain`:
+batched_beam_search at expand=1, k=0 over inline blocks, returning
+(f_ids [Q, beam] int32, f_d [Q, beam] f32, n_vis [Q] int32, cmps [Q] int32)
+with the frontier (dist, id)-sorted.
+
+Coverage (`kernel_covers`), a rule on the search and not a switch:
+query-mode searches (expand 1, no cut pruning, no exclude, full adjacency
+rows) over inline blocks of float32, bfloat16, native int8/uint8, or int8
+quantized with a per-node scale, with R <= MAX_R, w a multiple of 32 up to
+MAX_W and beam <= MAX_BEAM (the postfilter's MAX_SAFE_BEAM, so the whole
+doubling schedule stays in the kernel). Other searches take
+batched_beam_search. A CPU tensor goes to the plain version; a CUDA tensor
+goes to the kernel or raises. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..utils.data import METRIC_L2, METRIC_MIPS
+from .beam_search import batched_beam_search
+from .distances import fused_norm_distances, gathered_distances
+
+# Kernel launches since the count was last set to 0 (launches only, never
+# calls that took the plain version).
+BEAM_LAUNCHES = 0
+
+MAX_R = 64  # csrc/beam_search.cu MAX_R
+MAX_W = 256  # csrc/beam_search.cu MAX_W
+MAX_BEAM = 2048  # csrc/beam_search.cu MAX_BEAM
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.uint8: 3}
+_BYTE_DTYPES = (torch.int8, torch.uint8)
+
+_launch_fn = None
+
+
+def _kernel():
+    global _launch_fn
+    if _launch_fn is None:
+        fn = kernels.load("beam_search").beam_search_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p,
+                       p, p]
+        fn.restype = i
+        _launch_fn = fn
+    return _launch_fn
+
+
+def kernel_covers(graph, beam: int, degree_limit: int) -> bool:
+    """True when the kernel computes this query-mode search (expand 1,
+    k = 0, no exclude) over the graph's inline blocks."""
+    v = graph.nbr_vecs
+    if v is None or v.dtype not in _DTYPE_CODES:
+        return False
+    if graph.nbr_scale is not None and v.dtype != torch.int8:
+        return False
+    _, r, w = v.shape
+    return (degree_limit == 0 and r <= MAX_R
+            and w <= MAX_W and w % 32 == 0 and 1 <= beam <= MAX_BEAM)
+
+
+def start_distances(ps, graph, queries, starts, metric):
+    """[Q] distances from each query (padded to the store's width) to its
+    start node, from the full store row with its fused norm column: the
+    plain search's own init (ops/beam_search.py)."""
+    start_safe = starts.clamp(0, graph.m - 1).long()
+    gid = (start_safe if graph.identity_s2g
+           else graph.slab_to_global_dev[start_safe].long())
+    rows = ps.data[gid][:, None, :]
+    if ps.norm_col >= 0:
+        return fused_norm_distances(rows, queries, metric, ps.norm_col)[:, 0]
+    return gathered_distances(queries, rows, ps.norms_sq[gid][:, None], metric)[:, 0]
+
+
+def beam_search_plain(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts,
+                      d0, active, *, beam, limit, metric):
+    """The plain version: batched_beam_search at expand=1, k=0 over the
+    inline blocks, starting from the given d0."""
+    res = batched_beam_search(
+        None, None, nbrs, None, queries, starts, beam=beam, k=0, cut=1.35,
+        limit=limit, metric=metric, active_in=active, expand=1,
+        identity_map=True, nbr_vecs=nbr_vecs, nbr_norms=nbr_norms,
+        nbr_scale=nbr_scale, d0=d0)
+    return res.frontier_ids, res.frontier_dists, res.num_visited, res.dist_cmps
+
+
+def beam_search_inline(
+    nbr_vecs: torch.Tensor,  # [m, R, w] f32 / bf16 / int8 / uint8
+    nbrs: torch.Tensor,  # [m, R] int32 slab ids, -1 pad
+    nbr_norms: torch.Tensor,  # [m, R] f32
+    nbr_scale,  # [m] f32 dequant scales of int8-quantized blocks, or None
+    queries: torch.Tensor,  # [Q, w] f32
+    starts: torch.Tensor,  # [Q] int slab start ids
+    d0: torch.Tensor,  # [Q] f32 start distances (start_distances)
+    active: torch.Tensor,  # [Q] bool, False = padded query
+    *,
+    beam: int,
+    limit: int,
+    metric: str,
+):
+    """Greedy beam search of each query over the inline blocks. Returns
+    (f_ids, f_d, n_vis, cmps) as the plain version does."""
+    if metric not in (METRIC_L2, METRIC_MIPS):
+        raise ValueError(metric)
+    args = (nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0, active)
+    if nbr_vecs.device.type == "cpu":
+        return beam_search_plain(*args, beam=beam, limit=limit, metric=metric)
+    if nbr_vecs.device.type != "cuda":
+        raise ValueError(f"beam_search_inline takes CPU or CUDA tensors, "
+                         f"got {nbr_vecs.device}")
+    return _beam_cuda(*args, beam=beam, limit=limit, metric=metric)
+
+
+def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
+               active, *, beam, limit, metric):
+    global BEAM_LAUNCHES
+    dev = nbr_vecs.device
+    if nbr_vecs.dim() != 3 or nbr_vecs.dtype not in _DTYPE_CODES:
+        raise ValueError("nbr_vecs must be a [m, R, w] float32, bfloat16, "
+                         f"int8 or uint8 tensor, got {nbr_vecs.dtype}")
+    m, r, w = nbr_vecs.shape
+    q = queries.shape[0]
+    if not (1 <= r <= MAX_R and w % 32 == 0 and 32 <= w <= MAX_W
+            and 1 <= beam <= MAX_BEAM):
+        raise ValueError(f"the CUDA beam search takes R <= {MAX_R}, w a "
+                         f"multiple of 32 up to {MAX_W} and beam <= "
+                         f"{MAX_BEAM}; got R={r}, w={w}, beam={beam}")
+    if m >= 2**31 - 1:
+        raise ValueError(f"{m} nodes do not fit int32 ids")
+    if nbr_scale is not None and nbr_vecs.dtype != torch.int8:
+        raise ValueError("a dequant scale goes with int8 blocks only")
+    tensors = [("nbrs", nbrs, torch.int32, (m, r)),
+               ("nbr_norms", nbr_norms, torch.float32, (m, r)),
+               ("queries", queries, torch.float32, (q, w)),
+               ("d0", d0, torch.float32, (q,))]
+    if nbr_scale is not None:
+        tensors.append(("nbr_scale", nbr_scale, torch.float32, (m,)))
+    for name, t, dtype, shape in tensors:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {dtype} {list(shape)} tensor on "
+                             f"{dev}, got {t.dtype} {list(t.shape)} on {t.device}")
+    if tuple(starts.shape) != (q,) or tuple(active.shape) != (q,):
+        raise ValueError(f"starts and active must be [{q}]")
+    if not nbr_vecs.is_contiguous() or nbr_vecs.data_ptr() % 16:
+        raise ValueError("nbr_vecs must be contiguous and 16-byte aligned")
+    f_ids = torch.empty((q, beam), dtype=torch.int32, device=dev)
+    f_d = torch.empty((q, beam), dtype=torch.float32, device=dev)
+    n_vis = torch.empty(q, dtype=torch.int32, device=dev)
+    cmps = torch.empty(q, dtype=torch.int32, device=dev)
+    if q == 0:
+        return f_ids, f_d, n_vis, cmps
+    if nbr_vecs.dtype in _BYTE_DTYPES:  # the reference's operand policy
+        queries = queries.to(torch.bfloat16).to(torch.float32)
+    queries = queries.contiguous()
+    nbrs = nbrs.contiguous()
+    nbr_norms = nbr_norms.contiguous()
+    nbr_scale = None if nbr_scale is None else nbr_scale.contiguous()
+    starts = starts.to(dev, torch.int32).contiguous()
+    act = active.to(dev, torch.uint8).contiguous()
+    d0 = d0.contiguous()
+    with torch.cuda.device(dev):
+        rc = _kernel()(
+            nbr_vecs.data_ptr(), _DTYPE_CODES[nbr_vecs.dtype], nbrs.data_ptr(),
+            nbr_norms.data_ptr(),
+            None if nbr_scale is None else nbr_scale.data_ptr(),
+            queries.data_ptr(), starts.data_ptr(), d0.data_ptr(), act.data_ptr(),
+            q, m, r, w, int(beam), int(min(limit, 2**31 - 1)),
+            int(metric == METRIC_L2), f_ids.data_ptr(), f_d.data_ptr(),
+            n_vis.data_ptr(), cmps.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"beam_search launch failed (code {rc})")
+    BEAM_LAUNCHES += 1
+    return f_ids, f_d, n_vis, cmps

@@ -13,6 +13,14 @@ import torch
 EMPTY_ID = 2**31 - 1  # sorts after every real id
 
 
+def lexsort2(d: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Per-row permutation that sorts by (d, key): two stable sorts, as
+    jax.lax.sort(num_keys=2) orders; equal pairs keep their positions."""
+    _, by_key = torch.sort(key, dim=-1, stable=True)
+    _, by_d = torch.sort(torch.gather(d, -1, by_key), dim=-1, stable=True)
+    return torch.gather(by_key, -1, by_d)
+
+
 def masked_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
     """Per-row smallest-k by distance, ties broken by smaller id.
 
@@ -25,10 +33,7 @@ def masked_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
         pad = (*dists.shape[:-1], k - c)
         dists = torch.cat([dists, dists.new_full(pad, float("inf"))], dim=-1)
         ids = torch.cat([ids, ids.new_full(pad, EMPTY_ID)], dim=-1)
-    _, by_id = torch.sort(ids, dim=-1, stable=True)
-    d1 = torch.gather(dists, -1, by_id)
-    _, by_d = torch.sort(d1, dim=-1, stable=True)
-    sel = torch.gather(by_id, -1, by_d[..., :k])
+    sel = lexsort2(dists, ids)[..., :k]
     return torch.gather(dists, -1, sel), torch.gather(ids, -1, sel)
 
 

@@ -1,4 +1,4 @@
-"""User-facing factory API of the port: the prefilter constructor.
+"""User-facing factory API of the port: the prefilter and postfilter constructors.
 
 Counterpart of rangefilteredann_tpu/wrapper.py (ref: experiments/wrapper.py).
 The factory returns a constructor callable with the (metric, dtype) variant
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .models.postfilter_vamana import PostfilterVamanaIndex
 from .models.prefilter import PrefilterIndex
 from .params import DEFAULT_BUILD_PARAMS
 
@@ -40,4 +41,17 @@ def prefilter_index_constructor(metric: str, dtype: str):
     return ctor
 
 
-__all__ = ["prefilter_index_constructor"]
+def postfilter_vamana_constructor(metric: str, dtype: str):
+    """(ref: wrapper.py:265-285). The constructor's `device` places the
+    store and the graph: None means the card."""
+    _check(metric, dtype)
+
+    def ctor(points, filter_values, build_params=DEFAULT_BUILD_PARAMS,
+             device=None):
+        return PostfilterVamanaIndex(_cast(points, dtype), filter_values,
+                                     build_params, metric=metric, device=device)
+
+    return ctor
+
+
+__all__ = ["postfilter_vamana_constructor", "prefilter_index_constructor"]
