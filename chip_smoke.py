@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--nq 10240]
                           [--graph-n 200000] [--graph-nq 10240]
+                          [--variant-n 200000] [--variant-nq 2048]
 
 Run from the repository root. It imports nothing of JAX or the JAX package.
 Phases, each of which raises on failure (exit code != 0, no result line):
@@ -10,7 +11,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. nvcc builds every kernel of the port from csrc/ into build/kernels/;
   3. each kernel against its plain PyTorch version on the card, case by case
      (the scan against ops/bruteforce.scan_bruteforce, the beam search
-     against ops/beam.beam_search_plain);
+     against ops/beam.beam_search_plain, the scan variants v2, v3 and v3b of
+     tools/ against their plain versions at two (tile, qblock) shapes, v2's
+     bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
+     nested-loop probe against 6 x);
   4. the prefilter main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters,
      noise 0.35, uniform labels, as bench.py makes its data): PrefilterIndex
      on the card, batch_search of 10,240 queries at k=10 at filter fraction
@@ -23,15 +27,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and read just after, and is followed by recall@10 against a float64
      numpy oracle, best-of-3 timings, a profiler breakdown, the kernel's own
      time by CUDA events, and the kernel held against its plain version on
-     the main path's own inputs;
-  6. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+     the main path's own inputs; the scan variants also run on the
+     prefilter's 2^-2 batch, timed beside the scan kernel;
+  6. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
+     its own size: 200,000 x 128 fp32, 2,048 queries, windows of 1/4, k=10,
+     the tools' generator with seed 42, through each tool's main() with
+     the launch counts reset just before and read just after, then the
+     --dups inputs; each variant against a float64 oracle, its plain
+     version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
+  7. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
      launches on its main path, its worst deviation, its times and bound;
-  7. the card line again, then {"ok": true, "device": {...}} as the last line.
+  8. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -40,8 +52,9 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 D, K = 128, 10  # SIFT's width; the protocol's k
@@ -346,6 +359,150 @@ def run_beam_cases(torch):
 EMPTY_ID_NP = np.int32(2**31 - 1)
 
 
+# ------------------------------------------------------------ scan variants --
+
+VARIANT_REPS = 5  # timed calls per harness run, after one warm-up
+VARIANT_KERNELS = (("v3b", "scan_v3b"), ("v3", "scan_v3"), ("v2", "scan_v2"))
+
+
+def variant_shapes():
+    """The (tile, qblock) shapes held per variant: the first two that each
+    tool's main() sweeps."""
+    from rangefilteredann_tpu_torch.tools import GRIDS
+
+    return GRIDS[:2]
+
+
+def note_err(errs, run, err):
+    """Keep the largest deviation of the kernel that ran `run` (a run name
+    such as "v3b T=1024 QB=32 U=4") in errs, keyed by kernel name."""
+    name = next(kernel for prefix, kernel in VARIANT_KERNELS if run.startswith(prefix))
+    errs[name] = max(errs.get(name, 0.0), err)
+
+
+def variant_cases():
+    """The fp32 cases of kernel_cases() (the variants take fp32 stores
+    only), plus windows that are empty, narrower than k, at the store's end
+    or the whole store, for both metrics."""
+    cases = [c for c in kernel_cases() if c[1].dtype == np.float32]
+    rng = np.random.default_rng(99)
+    pts = rng.normal(size=(3000, 128)).astype(np.float32)
+    q = rng.normal(size=(64, 128)).astype(np.float32)
+    s = rng.integers(0, 3000, size=64).astype(np.int32)
+    e = np.minimum(s + rng.integers(0, 600, size=64), 3000).astype(np.int32)
+    s[:6] = [100, 200, 300, 400, 2995, 0]
+    e[:6] = [100, 203, 301, 404, 3000, 3000]
+    for metric in ("l2", "mips"):
+        cases.append((f"fp32-{metric}-n3000-d128-degenerate", pts, q, s, e, 10, metric, {}))
+    return cases
+
+
+def variant_runs(metric):
+    """(name, fn) of each variant setting a case runs: v2 (L2 only) and v3
+    at both shapes, v3b at the first shape with unroll 4 and at the second
+    with unroll 1 and 8. fn takes the scan's arguments, k and d_eff."""
+    from rangefilteredann_tpu_torch.tools.exp_scan2 import scan_v2
+    from rangefilteredann_tpu_torch.tools.exp_scan3 import scan_v3
+    from rangefilteredann_tpu_torch.tools.exp_scan3b import scan_v3b
+
+    shapes = variant_shapes()
+    (t0, b0), (t1, b1) = shapes
+    runs = []
+    if metric == "l2":
+        runs += [(f"v2 T={t} QB={b}", functools.partial(scan_v2, tile=t, qblock=b))
+                 for t, b in shapes]
+    runs += [(f"v3 T={t} QB={b}", functools.partial(scan_v3, metric=metric, tile=t, qblock=b))
+             for t, b in shapes]
+    runs += [(f"v3b T={t} QB={b} U={u}",
+              functools.partial(scan_v3b, metric=metric, tile=t, qblock=b, unroll=u))
+             for t, b, u in ((t0, b0, 4), (t1, b1, 1), (t1, b1, 8))]
+    return runs
+
+
+def run_variant_cases(torch):
+    """Each scan variant against its plain version (scan_bruteforce) on the
+    card, at every setting of variant_runs(). Returns each kernel's max
+    |dd| by name."""
+    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
+    from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
+
+    errs = {}
+    for name, pts, q, s, e, k, metric, opt in variant_cases():
+        ps = make_pointset(pts, metric, device="cuda")
+        d = pts.shape[1]
+        qp = torch.from_numpy(pad_queries(q, d, ps.d_pad)).cuda()
+        st, en = torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda()
+        d_eff = ps.norm_col
+        qk = qp.clone()
+        if opt.get("dirty_norm_col"):  # the kernels must zero the query there
+            qk[:, d:] = 123.0
+        plain = scan_bruteforce(ps.data, ps.norms_sq, qp, st, en, k + 1, metric)
+        runs = variant_runs(metric)
+        for run, fn in runs:
+            got = fn(ps.data, ps.norms_sq, qk, st, en, k, d_eff=d_eff)
+            torch.cuda.synchronize()
+            err, excused = compare_topk(got, plain, k, exact=False)
+            note_err(errs, run, err)
+        log(f"variant case {name} k={k}: {', '.join(n for n, _ in runs)} ok, "
+            f"max|dd| so far {errs}")
+    return errs
+
+
+def grid_values(rng, shape):
+    """Values on the grid j/8: exact in bf16, and every product and partial
+    sum of a 128-term distance exact in fp32, in any order."""
+    return (np.round(rng.normal(size=shape) * 8) / 8).astype(np.float32)
+
+
+def run_bf16_cases(torch):
+    """v2's bf16 pass and rerank_fp32 after it on grid-valued data, where
+    the tensor-core products must equal the plain version bit for bit."""
+    from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
+    from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
+
+    rng = np.random.default_rng(777)
+    n, nq = 20_000, 512
+    pts, q = grid_values(rng, (n, D)), grid_values(rng, (nq, D))
+    s = rng.integers(0, n, size=nq).astype(np.int32)
+    e = np.minimum(s + rng.integers(0, n, size=nq), n).astype(np.int32)
+    e[:4] = s[:4]
+    e[4:8] = n
+    s[8:12] = 0
+    ps = make_pointset(pts, "l2", device="cuda")
+    qp = torch.from_numpy(pad_queries(q, D, ps.d_pad)).cuda()
+    a = (ps.data, ps.norms_sq, qp, torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda())
+    for k in (10, 100, v2.RERANK_K):
+        plain = v2.scan_v2_plain(*a, k, bf16=True, d_eff=D)
+        for t, b in variant_shapes():
+            got = v2.scan_v2(*a, k, tile=t, bf16=True, d_eff=D, qblock=b)
+            torch.cuda.synchronize()
+            compare_topk(got, plain, k, exact=True)
+            if k == v2.RERANK_K:
+                got_r = v2.rerank_fp32(ps.data, ps.norms_sq, qp, got[1], K)
+                plain_r = v2.rerank_fp32(ps.data, ps.norms_sq, qp, plain[1], K)
+                compare_topk(got_r, plain_r, K, exact=True)
+        log(f"bf16 case grid-n{n}-d{D} k={k}: v2 bf16 identical to its plain version"
+            + (f", rerank_fp32 to k={K} identical" if k == v2.RERANK_K else "")
+            + f" at {variant_shapes()}")
+
+
+def run_probe_case(torch):
+    """The probe on ones (6 everywhere) and on random x against its plain
+    version. Returns max |kernel - plain| over both."""
+    from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
+
+    out = v3b.probe_nested_while("cuda")
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(8, 128)).astype(np.float32)).cuda()
+    got, plain = v3b.probe_sum(x), v3b.probe_nested_while_plain(x)
+    torch.cuda.synchronize()
+    err = max(float((out - 6.0).abs().max()), float((got - plain).abs().max()))
+    if not (bool((out == 6.0).all()) and torch.equal(got, plain)):
+        raise AssertionError(f"the probe kernel is not 6 x (max|dd|={err:.3g})")
+    log(f"probe case: ones -> 6 everywhere; random x identical to the plain version, "
+        f"max|dd|={err:.3g}")
+    return err
+
+
 # --------------------------------------------------------------- main path --
 
 def make_data(seed, n, d, nq, clusters=1000, noise=0.35):
@@ -559,16 +716,17 @@ def beam_work(args, out, nodes):
     return cmps * 2.0 * w, nbytes
 
 
-def bound(flops, nbytes):
-    """(bound ms, "operations" or "bytes") on the H100's published peaks."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops):
+    """(bound ms, "operations" or "bytes") on the H100's published peaks, the
+    operations at `peak_flops` (the rate of the units that run them)."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def run_prefilter_path(torch, args, worst):
-    """The prefilter main path at SIFT-1M scale. Returns the scan kernel's
-    entry of the kernels line."""
+    """The prefilter main path at SIFT-1M scale. Returns the scan inputs of
+    its 2^-2 batch and the scan kernel's entry of the kernels line."""
     import rangefilteredann_tpu_torch as P
     from rangefilteredann_tpu_torch.models import base
     from rangefilteredann_tpu_torch.ops import beam, scan
@@ -655,7 +813,7 @@ def run_prefilter_path(torch, args, worst):
         plain_ms = cuda_time_ms(
             torch, lambda: scan_bruteforce(data, norms, q_dev, st, en, k, metric), 1)
         flops, nbytes, streamed = scan_work(a, kw)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
         timed[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
         log(f"scan kernel {name}: {kernel_ms:.3f} ms (plain {plain_ms:.3f} ms); "
             f"work {flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB once "
@@ -664,7 +822,7 @@ def run_prefilter_path(torch, args, worst):
             f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms bytes); "
             f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
     kernel_ms, plain_ms, bound_ms, bound_by = timed["frac2^-2"]
-    return {
+    return scan_inputs["frac2^-2"], {
         "name": "scan_topk",
         "route": "cuda",
         "source": "rangefilteredann_tpu_torch/csrc/scan_topk.cu",
@@ -770,7 +928,7 @@ def run_graph_path(torch, args, worst):
         plain_ms = cuda_time_ms(torch, lambda: beam.beam_search_plain(*a, **kw), 1)
         nodes = expanded_nodes(torch, a, kw, out)
         flops, nbytes = beam_work(a, out, nodes)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
         tot += (kernel_ms, plain_ms, flops, nbytes)
         q = a[4].shape[0]
         sum_vis = int(out[2].double().sum())
@@ -789,7 +947,7 @@ def run_graph_path(torch, args, worst):
             raise AssertionError(
                 f"frontiers equal to the plain version's up to near-tie order on "
                 f"{share_ties:.4%} of queries, n_vis and cmps on {same_counts:.4%}")
-    bound_ms, bound_by = bound(tot[2], tot[3])
+    bound_ms, bound_by = bound(tot[2], tot[3], PEAK_FP32_FLOPS)
     log(f"beam kernel per batch_search: {tot[0]:.3f} ms over {len(captured)} launches "
         f"(plain {tot[1]:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}")
     return {
@@ -807,6 +965,150 @@ def run_graph_path(torch, args, worst):
     }
 
 
+def run_variants_on_batch(torch, inputs, b1_ms, errs):
+    """The scan variants on the prefilter main path's 2^-2 batch (the scan
+    kernel's own inputs): each against the plain version, its max |dd| kept
+    in errs, then timed by CUDA events beside the scan kernel."""
+    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
+    from rangefilteredann_tpu_torch.tools.exp_scan2 import scan_v2
+
+    a, kw = inputs
+    k, d_eff = kw["k"], kw["d_eff"]
+    plain = scan_bruteforce(*a, k + 1, "l2")
+    for name, fn in variant_runs("l2"):
+        got = fn(*a, k, d_eff=d_eff)
+        torch.cuda.synchronize()
+        err, excused = compare_topk(got, plain, k, exact=False)
+        note_err(errs, name, err)
+        ms = cuda_time_ms(torch, lambda: fn(*a, k, d_eff=d_eff), 3)
+        log(f"prefilter 2^-2 batch [{a[2].shape[0]} queries x {a[0].shape[0]} rows] {name}: "
+            f"{ms:.3f} ms (scan kernel {b1_ms:.3f} ms, {ms / b1_ms:.2f}x), == plain, "
+            f"max|dd|={err:.3g}, near-ties excused={excused}")
+    t, b = variant_shapes()[0]
+    ms = cuda_time_ms(torch, lambda: scan_v2(*a, k, tile=t, bf16=True, d_eff=d_eff,
+                                             qblock=b), 3)
+    log(f"prefilter 2^-2 batch v2 bf16 T={t} QB={b}: {ms:.3f} ms (scan kernel "
+        f"{b1_ms:.3f} ms, {ms / b1_ms:.2f}x)")
+
+
+def harness_checks(torch, h, prod_name, names, gt=None):
+    """Each named run of a harness against the plain version (near-tie
+    tolerant) and, with an oracle, against the float64 oracle: its set-match
+    must equal the scan kernel's. Returns (max |dd|, best ms, plain ms)."""
+    from rangefilteredann_tpu_torch.tools import D as HD, K as HK, window_scan_plain
+
+    plain = window_scan_plain(*h.args, HK + 1, d_eff=HD)
+    plain_ms = cuda_time_ms(torch, lambda: window_scan_plain(*h.args, HK, d_eff=HD), 1)
+    prod = h.runs[prod_name][0]
+    compare_topk(prod, plain, HK, exact=False)
+    prod_set = h.check(gt, prod[1], prod_name)[0] if gt is not None else None
+    worst, best = 0.0, float("inf")
+    for name in names:
+        out, ms = h.runs[name]
+        err, excused = compare_topk(out, plain, HK, exact=False)
+        same = float((out[1] == prod[1]).double().mean())
+        worst, best = max(worst, err), min(best, ms)
+        note = ""
+        if gt is not None:
+            set_m, pos_m = h.check(gt, out[1], name)
+            if set_m != prod_set:
+                raise AssertionError(f"{name}: oracle set-match {set_m}, scan kernel {prod_set}")
+            note = f", oracle set-match {set_m} pos-match {pos_m}"
+        log(f"harness {name}: {ms:.3f} ms, == plain (max|dd|={err:.3g}, near-ties "
+            f"excused={excused}), ids equal to the scan kernel's {same:.6f}{note}")
+    return worst, best, plain_ms
+
+
+def run_variant_path(torch, args, errs):
+    """The scan-variant harness at its own size, through the tools'
+    main(). errs holds each kernel's max |dd| from the earlier phases, by
+    name. Returns the kernels line's entries of v2, v3, v3b and the probe."""
+    from rangefilteredann_tpu_torch.ops import beam, scan
+    from rangefilteredann_tpu_torch.tools import D as HD, K as HK, make_harness
+    from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
+    from rangefilteredann_tpu_torch.tools import exp_scan3 as v3
+    from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
+
+    argv = ["--n", str(args.variant_n), "--nq", str(args.variant_nq),
+            "--reps", str(VARIANT_REPS)]
+    dups = ["--dups", "--reps", "1"]
+    t0 = time.time()
+    # every kernel's count, just before
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0
+    v2.SCAN_V2_LAUNCHES = v3.SCAN_V3_LAUNCHES = v3b.SCAN_V3B_LAUNCHES = v3b.PROBE_LAUNCHES = 0
+    h2 = v2.main(argv)
+    h3 = v3.main(argv)
+    h3b = v3b.main(argv)
+    h3d = v3.main(argv + dups)
+    h3bd = v3b.main(argv + dups + ["--skip-probe"])
+    h2d = make_harness(args.variant_n, args.variant_nq, "cuda", 1, dups=True, degenerate=True)
+    tile, qblock = variant_shapes()[0]
+    h2d.timeit("prod", lambda: scan.scan_topk(*h2d.args, HK, "l2", d_eff=HD))
+    h2d.timeit("v2 dups", lambda: v2.scan_v2(*h2d.args, HK, tile=tile, d_eff=HD,
+                                             qblock=qblock))
+    launches = {"scan_v2": v2.SCAN_V2_LAUNCHES, "scan_v3": v3.SCAN_V3_LAUNCHES,
+                "scan_v3b": v3b.SCAN_V3B_LAUNCHES, "probe": v3b.PROBE_LAUNCHES}
+    b1_launches, beam_launches = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+    log(f"variant harness path: launches {launches}, scan_topk {b1_launches}, beam_search "
+        f"{beam_launches}, in {time.time() - t0:.1f} s")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the harness path never launched a kernel: {launches}")
+
+    def runs(h, prefix):
+        return [n for n in h.runs if n.startswith(prefix)]
+
+    # (kernel name, its harness, the harness's scan-kernel run, the kernel's runs)
+    harnesses = (("scan_v2", h2, "prod scan_topk fp32", runs(h2, "v2 insert fp32")),
+                 ("scan_v3", h3, "prod", runs(h3, "v3 ")),
+                 ("scan_v3b", h3b, "prod", runs(h3b, "v3b ")))
+    timed = {}
+    for name, h, prod_name, names in harnesses:
+        err, ms, plain_ms = harness_checks(torch, h, prod_name, names, h.oracle(HK))
+        errs[name] = max(errs.get(name, 0.0), err)
+        flops, nbytes, _ = scan_work(h.args, {"k": HK, "d_eff": HD})
+        timed[name] = (ms, plain_ms, *bound(flops, nbytes, PEAK_FP32_FLOPS))
+        log(f"harness {name}: work {flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB once; "
+            f"bound {timed[name][2]:.4f} ms by {timed[name][3]} at the fp32 rate; best "
+            f"{ms:.3f} ms; scan kernel {h.runs[prod_name][1]:.3f} ms")
+    for name, h, prefix in (("scan_v3", h3d, "v3 "), ("scan_v3b", h3bd, "v3b "),
+                            ("scan_v2", h2d, "v2 ")):
+        err, _, _ = harness_checks(torch, h, "prod", runs(h, prefix))
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    # v2's bf16 pass against its plain version, and the recall of bf16 + rerank
+    bf16_name = next(n for n in h2.runs if n.startswith("v2 insert bf16") and "rerank" not in n)
+    plain_bf16 = v2.scan_v2_plain(*h2.args, HK + 1, bf16=True, d_eff=HD)
+    err, excused = compare_topk(h2.runs[bf16_name][0], plain_bf16, HK, exact=False)
+    errs["scan_v2"] = max(errs["scan_v2"], err)
+    rerank_name = next(n for n in h2.runs if "rerank" in n)
+    recall = h2.checks[bf16_name + "+rerank"][0]
+    flops, nbytes, _ = scan_work(h2.args, {"k": HK, "d_eff": HD})
+    bf16_bound, bf16_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"harness {bf16_name}: {h2.runs[bf16_name][1]:.3f} ms, == its plain version "
+        f"(max|dd|={err:.3g}, near-ties excused={excused}), oracle set-match "
+        f"{h2.checks[bf16_name][0]}; bound {bf16_bound:.4f} ms by {bf16_by} at the bf16 rate; "
+        f"{rerank_name}: {h2.runs[rerank_name][1]:.3f} ms, recall (oracle set-match) {recall}")
+
+    x = torch.ones((8, 128), dtype=torch.float32).cuda()
+    probe_ms = cuda_time_ms(torch, lambda: v3b.probe_sum(x), 20)
+    probe_plain = cuda_time_ms(torch, lambda: v3b.probe_nested_while_plain(x), 20)
+    timed["probe"] = (probe_ms, probe_plain,
+                      *bound(6.0 * x.numel(), 2 * 4 * x.numel(), PEAK_FP32_FLOPS))
+
+    def entry(name, source, replaces):
+        ms, plain_ms, b_ms, b_by = timed[name]
+        return {"name": name, "route": "cuda",
+                "source": f"rangefilteredann_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+    return [entry("scan_v2", "scan_v2.cu", "tools/exp_scan2.py:73"),
+            entry("scan_v3", "scan_v3.cu", "tools/exp_scan3.py:85"),
+            entry("scan_v3b", "scan_v3b.cu", "tools/exp_scan3b.py:114"),
+            entry("probe", "scan_v3b.cu", "tools/exp_scan3b.py:60")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -814,6 +1116,8 @@ def main() -> int:
     ap.add_argument("--nq", type=int, default=10_240)
     ap.add_argument("--graph-n", type=int, default=200_000)
     ap.add_argument("--graph-nq", type=int, default=10_240)
+    ap.add_argument("--variant-n", type=int, default=200_000)
+    ap.add_argument("--variant-nq", type=int, default=2048)
     args = ap.parse_args()
 
     import torch
@@ -846,15 +1150,27 @@ def main() -> int:
     beam_worst = run_beam_cases(torch)
     log(f"beam kernel cases: all passed in {time.time() - t0:.1f} s, "
         f"max|dd|={beam_worst:.3g}")
+    t0 = time.time()
+    variant_errs = run_variant_cases(torch)
+    run_bf16_cases(torch)
+    variant_errs["probe"] = run_probe_case(torch)
+    log(f"scan variant cases: all passed in {time.time() - t0:.1f} s, "
+        f"max|dd| {variant_errs}")
 
     # 4-5. the main paths
-    entries = [run_prefilter_path(torch, args, scan_worst)]
+    batch_inputs, scan_entry = run_prefilter_path(torch, args, scan_worst)
+    run_variants_on_batch(torch, batch_inputs, scan_entry["ms"], variant_errs)
+    del batch_inputs
+    entries = [scan_entry]
     torch.cuda.empty_cache()
     entries.append(run_graph_path(torch, args, beam_worst))
+    torch.cuda.empty_cache()
+    # 6. the scan-variant harness
+    entries += run_variant_path(torch, args, variant_errs)
 
-    # 6. inventory
+    # 7. inventory
     print(json.dumps({"kernels": entries}), flush=True)
-    # 7. the card, then the result
+    # 8. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

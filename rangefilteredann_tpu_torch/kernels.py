@@ -2,9 +2,9 @@
 
 Each source `csrc/<name>.cu` has a plain C interface. nvcc compiles it for
 sm_90a into a shared library under `build/kernels/` at the repository root,
-named by a hash of the source and flags so that a stale build is never
-loaded, and ctypes loads it at first use. Nothing is built when a module is
-imported.
+named by a hash of the source, the `csrc/` headers it includes and the
+flags so that a stale build is never loaded, and ctypes loads it at first
+use. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("scan_topk", "beam_search")
+SOURCES = ("scan_topk", "beam_search", "scan_v2", "scan_v3", "scan_v3b")
 
 _LOADED: "dict[str, ctypes.CDLL]" = {}
 
@@ -39,6 +40,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join((CSRC / h.decode()).read_bytes()
+                    for h in re.findall(rb'^#include "([^"]+)"', src, re.M))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -73,19 +73,25 @@ def scan_topk(
                       data.shape[1] if d_eff is None else int(d_eff))
 
 
-def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
-    global SCAN_LAUNCHES
+def sorted_launch_args(data, norms_sq, queries, starts, ends, k, d_eff, *,
+                       chunk, dtypes, name):
+    """Check the arguments of a scan kernel on the card and sort the queries
+    by window midpoint, so each block of queries walks a tight union of
+    windows. Returns (order, sorted queries [Q, d_stream] f32 contiguous and
+    zero past d_eff, sorted starts, sorted ends, d_stream), where d_stream
+    is d_eff rounded up to `chunk`. Byte stores get the reference's operand
+    policy: the query is rounded to bf16."""
     dev = data.device
     n_rows, d_pad = data.shape
     q = queries.shape[0]
-    if data.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the CUDA scan does not take {data.dtype} stores")
+    if data.dtype not in dtypes:
+        raise ValueError(f"the CUDA {name} does not take {data.dtype} stores")
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"the CUDA scan takes 1 <= k <= {MAX_K}, got k={k}")
-    for name, t in (("norms_sq", norms_sq), ("queries", queries),
-                    ("starts", starts), ("ends", ends)):
+        raise ValueError(f"the CUDA {name} takes 1 <= k <= {MAX_K}, got k={k}")
+    for arg, t in (("norms_sq", norms_sq), ("queries", queries),
+                   ("starts", starts), ("ends", ends)):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the store on {dev}")
+            raise ValueError(f"{arg} is on {t.device}, the store on {dev}")
     if not data.is_contiguous() or data.data_ptr() % 16 or (
             d_pad * data.element_size()) % 16:
         raise ValueError("the store must be contiguous with 16-byte aligned rows")
@@ -98,27 +104,34 @@ def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
         raise ValueError(f"starts and ends must be [{q}]")
     if n_rows >= 2**31 - 1:
         raise ValueError(f"{n_rows} rows do not fit int32 ids")
-    d_stream = -(-d_eff // CHUNK) * CHUNK
+    d_stream = -(-d_eff // chunk) * chunk
     if not 0 < d_eff <= d_stream <= min(d_pad, queries.shape[1]):
         raise ValueError(f"d_eff={d_eff} does not fit the store ({d_pad}) "
                          f"and queries ({queries.shape[1]})")
-    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out_d, out_i
-
     starts = starts.to(torch.int32)
     ends = ends.to(torch.int32)
-    # midpoint-sort so each block of queries walks a tight union of windows
     order = torch.argsort(starts.long() + ends.long(), stable=True)
     qs = queries[order, :d_stream]
     if data.dtype != torch.float32:  # byte stores: the reference's operand policy
         qs = qs.to(torch.bfloat16).to(torch.float32)
     if d_eff < d_stream:
         qs[:, d_eff:] = 0.0
-    qs = qs.contiguous()
-    s_s = starts[order].contiguous()
-    e_s = ends[order].contiguous()
+    return (order, qs.contiguous(), starts[order].contiguous(),
+            ends[order].contiguous(), d_stream)
+
+
+def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
+    global SCAN_LAUNCHES
+    dev = data.device
+    n_rows, d_pad = data.shape
+    order, qs, s_s, e_s, d_stream = sorted_launch_args(
+        data, norms_sq, queries, starts, ends, k, d_eff, chunk=CHUNK,
+        dtypes=_DTYPE_CODES, name="scan")
+    q = qs.shape[0]
+    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_d, out_i
     d_sorted = torch.empty_like(out_d)
     i_sorted = torch.empty_like(out_i)
     with torch.cuda.device(dev):

@@ -1,0 +1,286 @@
+"""Scan-variant experiment harness of the PyTorch port.
+
+Counterpart of the JAX package's `tools/exp_scan2.py`, `exp_scan3.py` and
+`exp_scan3b.py`: three designs of the range-masked top-k scan, each a
+hand-written CUDA kernel (`csrc/scan_v2.cu`, `scan_v3.cu`, `scan_v3b.cu`)
+with its wrapper, its plain version and a `main()` in the module of
+the same name:
+
+    python -m rangefilteredann_tpu_torch.tools.exp_scan2 [--reps 10] [--device cpu]
+
+This module holds what the three share: the kernels' caps, the launch
+around a ctypes-bound kernel, the plain version, the harness data (made
+exactly as the JAX tools make it), timing and the float64 oracle check.
+Each main() logs to stderr, as the JAX tools do; its "prod" baseline is the
+port's production scan (`ops/scan.scan_topk`).
+
+On the card, `tile` and `qblock` are the points a CTA stages per step and
+its queries: the [qblock, tile] fp32 block of distances must fit the 227 KB
+of shared memory a CTA can take, beside the running lists, so the TPU's
+sweep shapes (QB 128-512, TILE 2048-8192) do not carry over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.bruteforce import scan_bruteforce
+from ..ops.scan import MAX_K, sorted_launch_args
+from ..ops.topk import EMPTY_ID
+from ..utils.data import (METRIC_L2, METRIC_MIPS, PointSet, make_pointset,
+                          pad_queries, resolve_device)
+
+# The kernels' caps for check_caps, which holds CPU and CUDA calls to them
+# alike. csrc/scan_variants.cuh compiles the same values in, and its
+# launcher returns -1 outside them (launch() raises on that).
+SUB = 256  # points per sub-tile: tiles are multiples of it
+DK = 16  # columns per staged chunk: d_eff is streamed rounded up to it
+GROUP = 128  # points per group-minima table entry
+MAX_TILE = 32 * GROUP  # one table entry per lane
+MAX_SMEM = 231424  # dynamic shared memory a CTA may take
+QBLOCKS = (8, 16, 32)  # queries per CTA (bf16: 16 or 32)
+
+D, K = 128, 10  # the harness's width and k
+N_ORACLE = 256  # queries held against the float64 oracle
+# (tile, qblock) shapes each main() sweeps on the card; the first on the CPU
+GRIDS = ((1024, 32), (2048, 16), (1024, 8))
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def smem_bytes(tile: int, qblock: int, k: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/scan_variants.cuh smem_bytes):
+    the distance block, the running lists, one staged chunk."""
+    return qblock * tile * 4 + qblock * k * 8 + (DK * qblock + SUB * (DK + 1)) * 4
+
+
+def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
+               bf16: bool = False, unroll: int = 1, metric: str = METRIC_L2):
+    """Raise ValueError outside the variant kernels' caps, on any device:
+    nothing falls back."""
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the scan variants take CPU or CUDA tensors, got {data.device}")
+    if metric not in (METRIC_L2, METRIC_MIPS):
+        raise ValueError(metric)
+    if data.dtype != torch.float32:
+        raise ValueError(f"the scan variants take float32 stores, not {data.dtype}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the scan variants take 1 <= k <= {MAX_K}, got k={k}")
+    if not (SUB <= tile <= MAX_TILE and tile % SUB == 0):
+        raise ValueError(f"tile must be a multiple of {SUB} up to {MAX_TILE}, got {tile}")
+    if qblock not in QBLOCKS or (bf16 and qblock < 16):
+        raise ValueError(f"qblock must be one of {QBLOCKS} (bf16: 16 or 32), got {qblock}")
+    if smem_bytes(tile, qblock, k) > MAX_SMEM:
+        raise ValueError(f"a [{qblock}, {tile}] block with k={k} takes "
+                         f"{smem_bytes(tile, qblock, k)} bytes of shared memory, "
+                         f"over {MAX_SMEM}")
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+
+
+def bind(name: str, symbol: str, n_tail: int):
+    """The C launcher `symbol` of csrc/<name>.cu with its argument types:
+    (data, n_rows, d_pad, d_stream, norms, queries, starts, ends, nq,
+    n_tail ints, out_d, out_i, stream)."""
+    fn = getattr(kernels.load(name), symbol)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i] + [i] * n_tail + [p, p, p]
+    fn.restype = i
+    return fn
+
+
+def launch(fn, name, data, norms_sq, queries, starts, ends, k, d_eff, tail):
+    """Sort the queries by window midpoint, launch `fn` on PyTorch's current
+    stream, raise on a refused launch, and return (dists, ids) in the
+    caller's query order. An empty batch launches nothing."""
+    dev = data.device
+    n_rows, d_pad = data.shape
+    order, qs, s_s, e_s, d_stream = sorted_launch_args(
+        data, norms_sq, queries, starts, ends, k,
+        d_pad if d_eff is None else int(d_eff), chunk=DK,
+        dtypes=(torch.float32,), name=name)
+    q = qs.shape[0]
+    d_sorted = torch.empty((q, k), dtype=torch.float32, device=dev)
+    i_sorted = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return d_sorted, i_sorted
+    with torch.cuda.device(dev):
+        rc = fn(data.data_ptr(), n_rows, d_pad, d_stream, norms_sq.data_ptr(),
+                qs.data_ptr(), s_s.data_ptr(), e_s.data_ptr(), q, *tail,
+                d_sorted.data_ptr(), i_sorted.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc == -1:  # the launcher's own check of the caps, behind check_caps
+        raise RuntimeError(f"{name}: the kernel refused its arguments (code -1), "
+                           f"which check_caps let through: the caps here and in "
+                           f"csrc/scan_variants.cuh disagree")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed (CUDA error {rc})")
+    out_d, out_i = torch.empty_like(d_sorted), torch.empty_like(i_sorted)
+    out_d[order] = d_sorted
+    out_i[order] = i_sorted
+    return out_d, out_i
+
+
+def window_scan_plain(data, norms_sq, queries, starts, ends, k,
+                      metric=METRIC_L2, d_eff=None, bf16=False):
+    """The variants' plain version: ops/bruteforce.scan_bruteforce over the
+    first d_eff columns. bf16=True rounds those columns of the store and the
+    queries to bf16 (products then exact in fp32) and keeps the fp32 norms
+    of the unrounded store, as v2's bf16 pass does."""
+    w = data.shape[1] if d_eff is None else min(int(d_eff), data.shape[1])
+    q = queries[:, :w]
+    if bf16:
+        q = q.to(torch.bfloat16).to(torch.float32)
+        data = data[:, :w].to(torch.bfloat16).to(torch.float32)
+    return scan_bruteforce(data, norms_sq, q, starts, ends, k=k, metric=metric)
+
+
+# ---------------------------------------------------------------- harness --
+
+def harness_data(n, nq, *, dups=False, degenerate=False, seed=42):
+    """The JAX tools' data, draw for draw: clustered points (1000 centres,
+    noise 0.35) in a shuffled order, clustered queries, windows of int(n/4)
+    at k=10. dups (exp_scan3 --dups): every 3rd point duplicates another and
+    a quarter of the queries are store points. degenerate (exp_scan3/3b):
+    the first four windows are empty or narrower than k."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(1000, D)).astype(np.float32)
+    assign = rng.integers(0, 1000, size=n)
+    points = (centers[assign] + 0.35 * rng.normal(size=(n, D))).astype(np.float32)
+    if dups:
+        src = rng.integers(0, n, size=n // 3)
+        points[np.arange(0, n, 3)[: len(src)]] = points[src]
+    order = np.argsort(rng.uniform(size=n), kind="stable")
+    points = points[order]
+    q_assign = rng.integers(0, 1000, size=nq)
+    queries = (centers[q_assign] + 0.35 * rng.normal(size=(nq, D))).astype(np.float32)
+    if dups:
+        queries[: nq // 4] = points[rng.integers(0, n, size=nq // 4)]
+    width = int(n * 0.25)
+    starts = rng.integers(0, n - width, size=nq).astype(np.int32)
+    ends = (starts + width).astype(np.int32)
+    if degenerate:
+        starts[:4] = [100, 200, 300, 400]
+        ends[:4] = [100, 203, 301, 404]
+    return points, queries, starts, ends
+
+
+@dataclasses.dataclass
+class Harness:
+    """One harness run's inputs on its device, and what its runs measured."""
+
+    points: np.ndarray
+    queries: np.ndarray
+    starts_np: np.ndarray
+    ends_np: np.ndarray
+    ps: PointSet
+    qp: torch.Tensor  # [nq, d_pad] zero-padded queries
+    starts: torch.Tensor
+    ends: torch.Tensor
+    reps: int
+    runs: dict = dataclasses.field(default_factory=dict)  # name -> (out, ms)
+    checks: dict = dataclasses.field(default_factory=dict)  # name -> (set, pos)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ps.device
+
+    @property
+    def args(self):
+        """(data, norms_sq, queries, starts, ends) of every scan call."""
+        return self.ps.data, self.ps.norms_sq, self.qp, self.starts, self.ends
+
+    def timeit(self, name, fn):
+        """fn's output and its mean time over `reps` calls after one warm-up:
+        CUDA events on the card, the host clock on the CPU."""
+        out = fn()
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(self.reps):
+                fn()
+            stop.record()
+            torch.cuda.synchronize(self.device)
+            ms = start.elapsed_time(stop) / self.reps
+        else:
+            t0 = time.perf_counter()
+            for _ in range(self.reps):
+                fn()
+            ms = (time.perf_counter() - t0) / self.reps * 1e3
+        log(f"{name}: {ms:.2f} ms -> {len(self.queries) / ms * 1e3:.0f} qps")
+        self.runs[name] = (out, ms)
+        return out, ms
+
+    def oracle(self, k=K, n_or=N_ORACLE):
+        """Exact (dist, id) top-k ids of the first n_or queries in float64
+        (matmul form), EMPTY_ID where a window holds fewer than k points."""
+        n_or = min(n_or, len(self.queries))
+        x64 = self.points.astype(np.float64)
+        q64 = self.queries[:n_or].astype(np.float64)
+        d2 = (x64 ** 2).sum(1)[None, :] - 2.0 * (q64 @ x64.T)
+        for i in range(n_or):
+            d2[i, : self.starts_np[i]] = np.inf
+            d2[i, self.ends_np[i]:] = np.inf
+        gt = np.argsort(d2, axis=1, kind="stable")[:, :k]
+        gt[np.isinf(np.take_along_axis(d2, gt, axis=1))] = EMPTY_ID
+        return gt
+
+    def check(self, gt, ids, name):
+        """(set-match, pos-match) of ids against the oracle's, logged."""
+        got = ids[: len(gt)].cpu().numpy()
+        ok = float(np.mean([set(got[i]) == set(gt[i]) for i in range(len(gt))]))
+        exact = float(np.mean(got == gt))
+        log(f"  {name}: set-match {ok:.4f} pos-match {exact:.4f}")
+        self.checks[name] = (ok, exact)
+        return ok, exact
+
+    def vs_prod(self, prod, out, name):
+        """Share of ids and distances equal to the production scan's, logged
+        with the first mismatching row (exp_scan3's comparison)."""
+        pd, pi = (x.cpu().numpy() for x in prod)
+        vd, vi = (x.cpu().numpy() for x in out)
+        same_i = float(np.mean(pi == vi))
+        same_d = float(np.mean((pd == vd) | (np.isinf(pd) & np.isinf(vd))))
+        log(f"  {name}: id pos-match vs prod {same_i:.6f} dist {same_d:.6f}")
+        if same_i < 1.0:
+            r, c = np.argwhere(pi != vi)[0]
+            log(f"  first mismatch row {r} col {c}: prod {pi[r].tolist()} "
+                f"variant {vi[r].tolist()}")
+            log(f"    dists prod    {pd[r].tolist()}")
+            log(f"    dists variant {vd[r].tolist()}")
+        return same_i, same_d
+
+
+def make_harness(n, nq, device, reps, **data_kw) -> Harness:
+    """The harness data on `device` ("cuda" or "cpu"; the card raises
+    without one), as a label-sorted store with its fused norm column."""
+    dev = resolve_device(device)
+    points, queries, starts, ends = harness_data(n, nq, **data_kw)
+    ps = make_pointset(points, METRIC_L2, device=dev)
+    qp = torch.from_numpy(pad_queries(queries, D, ps.d_pad)).to(dev)
+    h = Harness(points, queries, starts, ends, ps, qp,
+                torch.from_numpy(starts).to(dev), torch.from_numpy(ends).to(dev),
+                reps)
+    log(f"n={n} nq={nq} width={int(n * 0.25)} d_pad={ps.d_pad} "
+        f"norm_col={ps.norm_col} device={dev}")
+    return h
+
+
+def main_args(ap, argv):
+    """The flags every main() shares, added to `ap`, parsed from argv."""
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--n", type=int, default=200_000)
+    ap.add_argument("--nq", type=int, default=2048)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    return ap.parse_args(argv)
