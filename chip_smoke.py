@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. nvcc builds every kernel of the port from csrc/ into build/kernels/;
   3. each kernel against its plain PyTorch version on the card, case by case
      (the scan against ops/bruteforce.scan_bruteforce, the beam search
-     against ops/beam.beam_search_plain, the scan variants v2, v3 and v3b of
+     against ops/beam.beam_search_plain in both of its launch
+     configurations, logged case by case, the scan variants v2, v3 and v3b of
      tools/ against their plain versions at two (tile, qblock) shapes, v2's
      bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
      nested-loop probe against 6 x);
@@ -26,8 +27,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      each main path runs with every kernel's launch count reset just before
      and read just after, and is followed by recall@10 against a float64
      numpy oracle, best-of-3 timings, a profiler breakdown, the kernel's own
-     time by CUDA events, and the kernel held against its plain version on
-     the main path's own inputs; the scan variants also run on the
+     time by CUDA events (for the beam kernel beside the bytes its
+     expansions read and its longest query's steps), and the kernel held
+     against its plain version on the main path's own inputs; the scan
+     variants also run on the
      prefilter's 2^-2 batch, timed beside the scan kernel;
   6. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
      its own size: 200,000 x 128 fp32, 2,048 queries, windows of 1/4, k=10,
@@ -180,13 +183,15 @@ def run_kernel_cases(torch):
     return worst
 
 
-def beam_slab(rng, m, r, w, grid=True):
+def beam_slab(rng, m, r, w, grid=True, hub=False):
     """tests/test_pallas_beam.py's random slab (sorted random adjacency of
     1..R neighbours, inline blocks copied from the rows) as
     (data, norms, nbrs, vecs, nbr_norms). With grid=True the values lie on
     the grid k/8, so every product and partial sum of a distance is exact in
     float32 and no summation order can change a distance: ids, n_vis and
-    cmps must then be identical. Real-valued data is held on the main path."""
+    cmps must then be identical. Real-valued data is held on the main path.
+    hub=True puts node 0 into every other row, so a search that starts there
+    meets its start again as a neighbour."""
     data = rng.normal(size=(m, w))
     data = (np.round(data * 8) / 8 if grid else data).astype(np.float32)
     norms = np.einsum("ij,ij->i", data, data).astype(np.float32)
@@ -194,18 +199,25 @@ def beam_slab(rng, m, r, w, grid=True):
     for i in range(m):
         cand = rng.choice(m, size=rng.integers(1, r + 1), replace=False)
         cand = cand[cand != i]
+        if hub and i > 0 and 0 not in cand:
+            cand = np.append(cand[: r - 1], 0)
         nbrs[i, :len(cand)] = np.sort(cand)
     safe = np.clip(nbrs, 0, m - 1)
     return data, norms, nbrs, data[safe], norms[safe]
 
 
 def beam_cases():
-    """(name, metric, R, beam, limit, blocks, inactive, w) cases: fp32 over
-    the grid of R x beam for both metrics, a small limit, an all-inactive
-    batch, bf16 blocks, native int8/uint8 blocks with integer queries
-    (exact), int8 blocks with a per-node scale (held at recall level), and
-    the widths w = 32, 96 and 256 beside the main path's 128 (the row loads
-    and the shared-memory layout depend on w)."""
+    """(name, metric, R, beam, limit, blocks, inactive, w, queries) cases:
+    fp32 over the grid of R x beam for both metrics, a small limit, an
+    all-inactive batch, bf16 blocks, native int8/uint8 blocks with integer
+    queries (exact), int8 blocks with a per-node scale (held at recall
+    level), and the widths w = 32, 96 and 256 beside the main path's 128
+    (the lanes a row and the shared-memory layout depend on w), all at 64
+    queries, which take four warps a query (ops/beam.launch_config). Then
+    batches of 600 and 2,048 queries, which take one warp a query, over
+    the same kinds of blocks; 16 queries at beams 320 and 2048; and the
+    start met again as a neighbour (hub) with int8 blocks and a scale,
+    whose two distances of one id the by-id duplicate test must keep apart."""
     cases = [(f"fp32-{metric}-R{r}-beam{beam}", metric, r, beam, 10_000, "fp32", 3, 128)
              for metric in ("l2", "mips") for r in (5, 48, 64)
              for beam in (8, 40, 80, 512, 2048)]
@@ -225,15 +237,31 @@ def beam_cases():
               ("int8-l2-R48-beam40-w256", "l2", 48, 40, 10_000, "int8", 3, 256),
               ("uint8-mips-R48-beam40-w32", "mips", 48, 40, 10_000, "uint8", 3, 32),
               ("int8scale-l2-R64-beam80-w256", "l2", 64, 80, 10_000, "int8scale", 3, 256)]
+    cases = [c + (64,) for c in cases]
+    cases += [("fp32-l2-R48-beam320-q16", "l2", 48, 320, 10_000, "fp32", 1, 128, 16),
+              ("fp32-l2-R48-beam2048-q16", "l2", 48, 2048, 10_000, "fp32", 1, 128, 16),
+              ("fp32-l2-R64-beam2048-w256-q16", "l2", 64, 2048, 10_000, "fp32", 1, 256, 16),
+              ("fp32-l2-R48-beam80-q2048", "l2", 48, 80, 10_000, "fp32", 3, 128, 2048),
+              ("fp32-l2-R64-beam2048-w256-q600", "l2", 64, 2048, 10_000, "fp32", 3, 256, 600),
+              ("fp32-mips-R5-beam40-w96-q600", "mips", 5, 40, 10_000, "fp32", 3, 96, 600),
+              ("fp32-l2-R48-beam40-limit7-q600", "l2", 48, 40, 7, "fp32", 3, 128, 600),
+              ("bf16-mips-R64-beam512-q600", "mips", 64, 512, 10_000, "bf16", 3, 128, 600),
+              ("int8-l2-R48-beam40-w256-q600", "l2", 48, 40, 10_000, "int8", 3, 256, 600),
+              ("uint8-mips-R48-beam40-w32-q600", "mips", 48, 40, 10_000, "uint8", 3, 32, 600),
+              ("int8scale-l2-R64-beam80-q600", "l2", 64, 80, 10_000, "int8scale", 3, 128, 600),
+              ("int8scale-l2-R48-beam80-hub", "l2", 48, 80, 10_000, "int8scale", 3, 128, 64),
+              ("int8scale-l2-R48-beam80-hub-q600", "l2", 48, 80, 10_000, "int8scale", 3, 128,
+               600)]
     return cases
 
 
-def beam_case_inputs(torch, rng, metric, r, blocks, inactive, w, m=3000, q=64):
+def beam_case_inputs(torch, rng, metric, r, blocks, inactive, w, m=3000, q=64, hub=False):
     """Tensors on the card for one case: the kernel wrapper's arguments and
-    the float data the int8-scale recall check needs."""
+    the float data the int8-scale recall check needs. With hub=True every
+    query starts at node 0, which every other row holds."""
     from rangefilteredann_tpu_torch.ops.distances import gathered_distances
 
-    data, norms, nbrs, vecs, nrm = beam_slab(rng, m, r, w, grid=blocks != "int8scale")
+    data, norms, nbrs, vecs, nrm = beam_slab(rng, m, r, w, grid=blocks != "int8scale", hub=hub)
     queries = (np.round(rng.normal(size=(q, w)) * 8) / 8).astype(np.float32)
     scale = None
     if blocks in ("int8", "uint8"):  # a byte store, integer queries
@@ -247,7 +275,7 @@ def beam_case_inputs(torch, rng, metric, r, blocks, inactive, w, m=3000, q=64):
         queries = rng.normal(size=(q, w)).astype(np.float32)
         scale = (np.abs(vecs).max(axis=(1, 2)) / 127.0).astype(np.float32)
         vecs = np.clip(np.rint(vecs / scale[:, None, None]), -127, 127).astype(np.int8)
-    starts = rng.integers(0, m, size=q).astype(np.int32)
+    starts = (np.zeros(q) if hub else rng.integers(0, m, size=q)).astype(np.int32)
     active = np.ones(q, dtype=bool)
     active[q - inactive:] = False
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
@@ -302,15 +330,39 @@ def frontier_agreement(got, plain):
             float(np.abs(kd - wd).max(initial=0.0)), np.concatenate(ulps))
 
 
+CONFIG_NAMES = {1: "one warp a query", 4: "four warps a query"}
+
+
+def launch_config_name(q, beam, vecs):
+    """The configuration the beam kernel's launch rule picks for a batch
+    over these blocks."""
+    from rangefilteredann_tpu_torch.ops.beam import launch_config
+
+    _, r, w = vecs.shape
+    return CONFIG_NAMES[launch_config(q, beam, r, w, vecs.element_size())[0]]
+
+
+def assert_distinct_ids(name, ids):
+    """No frontier holds an id twice (the duplicate test is by id)."""
+    s = np.sort(ids, axis=1)
+    if ((s[:, 1:] == s[:, :-1]) & (s[:, 1:] != EMPTY_ID_NP)).any():
+        raise AssertionError(f"case {name}: a frontier holds an id twice")
+
+
 def run_beam_cases(torch):
-    """Each beam case: the kernel against its plain version on the card."""
+    """Each beam case: the kernel against its plain version on the card.
+    Fails unless the cases reach both launch configurations."""
     from rangefilteredann_tpu_torch.ops.beam import beam_search_inline, beam_search_plain
 
     rng = np.random.default_rng(4321)
     worst = 0.0
-    for name, metric, r, beam, limit, blocks, inactive, w in beam_cases():
-        args, (data, queries) = beam_case_inputs(torch, rng, metric, r, blocks, inactive, w)
+    configs = set()
+    for name, metric, r, beam, limit, blocks, inactive, w, q in beam_cases():
+        args, (data, queries) = beam_case_inputs(torch, rng, metric, r, blocks, inactive, w,
+                                                 q=q, hub="hub" in name)
         kw = dict(beam=beam, limit=limit, metric=metric)
+        config = launch_config_name(q, beam, args[0])
+        configs.add(config)
         got = beam_search_inline(*args, **kw)
         plain = beam_search_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -318,6 +370,7 @@ def run_beam_cases(torch):
         pi, pd, pv, pc = (x.cpu().numpy() for x in plain)
         if (gv[~args[-1].cpu().numpy()] != 0).any():
             raise AssertionError(f"case {name}: an inactive query visited nodes")
+        assert_distinct_ids(name, gi)
         if blocks != "int8scale":
             np.testing.assert_array_equal(gi, pi, err_msg=f"case {name}: ids")
             np.testing.assert_array_equal(gv, pv, err_msg=f"case {name}: n_vis")
@@ -328,8 +381,8 @@ def run_beam_cases(torch):
                                        err_msg=f"case {name}: dists")
             err = float(np.abs(gd[fin] - pd[fin]).max(initial=0.0))
             worst = max(worst, err)
-            log(f"beam case {name}: ok, identical ids/n_vis/cmps, max|dd|={err:.3g}, "
-                f"mean n_vis {gv.mean():.1f}")
+            log(f"beam case {name} [{q} queries, {config}]: ok, identical ids/n_vis/cmps, "
+                f"max|dd|={err:.3g}, mean n_vis {gv.mean():.1f}")
             continue
         # int8 with a scale: approximate by design (tests/test_pallas_beam.py)
         mism = float((gi != pi).mean())
@@ -351,8 +404,11 @@ def run_beam_cases(torch):
         if rec_got < rec_plain - 0.01 or np.abs(gv - pv).mean() >= 2 or \
                 np.abs(gc - pc).mean() >= 128:
             raise AssertionError(f"case {name}: recall {rec_got} vs plain {rec_plain}")
-        log(f"beam case {name}: ok at recall level, {mism:.4%} ids differ, "
-            f"recall@10 {rec_got} (plain {rec_plain})")
+        log(f"beam case {name} [{q} queries, {config}]: ok at recall level, {mism:.4%} ids "
+            f"differ, n_vis equal on {float((gv == pv).mean()):.4f} of queries, recall@10 "
+            f"{rec_got} (plain {rec_plain})")
+    if configs != set(CONFIG_NAMES.values()):
+        raise AssertionError(f"the beam cases reached only {configs}")
     return worst
 
 
@@ -700,19 +756,25 @@ def expanded_nodes(torch, args, kw, out):
     return int(torch.unique(v[v != EMPTY_ID]).numel())
 
 
-def beam_work(args, out, nodes):
-    """Operations and bytes the beam search must do for one call: the block
-    of each of the `nodes` distinct expanded nodes (R rows of w elements,
-    R ids, R norms, its scale) read once however many queries expand it,
-    each query with its start, d0 and flag read once, the frontier and the
-    counters written once; 2*w flops per distance computed (the cmps of
-    every query: each query's distances are its own work)."""
+def block_bytes(args):
+    """Bytes of one node's expansion: R rows of w elements, R ids, R norms,
+    its scale."""
     vecs, scale = args[0], args[3]
     _, r, w = vecs.shape
+    return r * (w * vecs.element_size() + 8) + (4 if scale is not None else 0)
+
+
+def beam_work(args, out, nodes):
+    """Operations and bytes the beam search must do for one call: the block
+    of each of the `nodes` distinct expanded nodes read once however many
+    queries expand it, each query with its start, d0 and flag read once,
+    the frontier and the counters written once; 2*w flops per distance
+    computed (the cmps of every query: each query's distances are its own
+    work)."""
+    w = args[0].shape[2]
     q, beam = out[0].shape
     cmps = float(out[3].double().sum())
-    block = r * (w * vecs.element_size() + 8) + (4 if scale is not None else 0)
-    nbytes = nodes * block + q * (w * 4 + 9) + q * (beam * 8 + 8)
+    nbytes = nodes * block_bytes(args) + q * (w * 4 + 9) + q * (beam * 8 + 8)
     return cmps * 2.0 * w, nbytes
 
 
@@ -932,6 +994,16 @@ def run_graph_path(torch, args, worst):
         tot += (kernel_ms, plain_ms, flops, nbytes)
         q = a[4].shape[0]
         sum_vis = int(out[2].double().sum())
+        # the design's own ceiling: every expansion reads its block once
+        exp_bytes = sum_vis * block_bytes(a)
+        max_vis = int(out[2].max())
+        log(f"beam kernel beam {kw['beam']} [{q} queries, "
+            f"{launch_config_name(q, kw['beam'], a[0])}]: per-expansion bytes "
+            f"{exp_bytes / 1e9:.3f} GB (sum of n_vis x {block_bytes(a)} B), "
+            f"{exp_bytes / kernel_ms / 1e6:.1f} GB/s achieved against it "
+            f"({exp_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s); "
+            f"longest query {max_vis} steps, {kernel_ms * 1e3 / max(max_vis, 1):.2f} us a step "
+            f"at most")
         log(f"beam kernel beam {kw['beam']} [{q} queries]: {kernel_ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms); identical frontiers {share:.6f} id by id, "
             f"{share_ties:.6f} up to near-tie order; identical n_vis and "

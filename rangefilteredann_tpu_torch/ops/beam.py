@@ -18,6 +18,15 @@ MAX_W and beam <= MAX_BEAM (the postfilter's MAX_SAFE_BEAM, so the whole
 doubling schedule stays in the kernel). Other searches take
 batched_beam_search. A CPU tensor goes to the plain version; a CUDA tensor
 goes to the kernel or raises. There is no fallback from one to the other.
+
+Launch configuration (`launch_config`), a rule on the batch and not a
+switch: the kernel runs one CTA per query, of one warp or of four warps,
+both instances of one template. A batch whose queries all fit the card at
+once as four-warp CTAs (at most SMS x the CTAs an SM holds, by registers
+and by the shared memory that beam, R, w and the element size ask for)
+takes four warps a query, so a small batch spreads its steps over more
+threads; a larger batch takes one warp a query, which spends no threads on
+barriers and packs the most queries into an SM.
 """
 
 from __future__ import annotations
@@ -38,6 +47,12 @@ BEAM_LAUNCHES = 0
 MAX_R = 64  # csrc/beam_search.cu MAX_R
 MAX_W = 256  # csrc/beam_search.cu MAX_W
 MAX_BEAM = 2048  # csrc/beam_search.cu MAX_BEAM
+BLOCKS_PER_SM = 4  # csrc/beam_search.cu BLOCKS_PER_SM: 4-warp CTAs an SM holds
+CTL_BYTES = 32  # csrc/beam_search.cu CTL_BYTES
+CAND_ARRAYS = 11  # csrc/beam_search.cu CAND_ARRAYS
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233_472  # shared memory of an SM (228 KB)
+SMEM_RESERVED = 1024  # shared memory the system keeps per CTA
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.uint8: 3}
 _BYTE_DTYPES = (torch.int8, torch.uint8)
@@ -50,8 +65,8 @@ def _kernel():
     if _launch_fn is None:
         fn = kernels.load("beam_search").beam_search_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p,
-                       p, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p,
+                       p, p, p]
         fn.restype = i
         _launch_fn = fn
     return _launch_fn
@@ -68,6 +83,23 @@ def kernel_covers(graph, beam: int, degree_limit: int) -> bool:
     _, r, w = v.shape
     return (degree_limit == 0 and r <= MAX_R
             and w <= MAX_W and w % 32 == 0 and 1 <= beam <= MAX_BEAM)
+
+
+def query_smem_bytes(beam: int, r: int, w: int, elem: int) -> int:
+    """Shared memory of one query's CTA (csrc/beam_search.cu
+    query_smem_bytes): control words, the query, the candidates' scratch,
+    the staged [r, w] block of `elem`-byte elements, the frontier."""
+    return (CTL_BYTES + 4 * w + CAND_ARRAYS * MAX_R * 4 + r * w * elem + 9 * beam
+            + 15) // 16 * 16
+
+
+def launch_config(q: int, beam: int, r: int, w: int, elem: int):
+    """(warps per query, dynamic shared memory bytes a CTA) of a launch of
+    q queries at this beam over [r, w] blocks of `elem`-byte elements: four
+    warps a query when every query's CTA is resident at once, else one."""
+    smem = query_smem_bytes(beam, r, w, elem)
+    ctas_per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return (4 if q <= SMS * ctas_per_sm else 1), smem
 
 
 def start_distances(ps, graph, queries, starts, metric):
@@ -176,7 +208,9 @@ def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
             None if nbr_scale is None else nbr_scale.data_ptr(),
             queries.data_ptr(), starts.data_ptr(), d0.data_ptr(), act.data_ptr(),
             q, m, r, w, int(beam), int(min(limit, 2**31 - 1)),
-            int(metric == METRIC_L2), f_ids.data_ptr(), f_d.data_ptr(),
+            int(metric == METRIC_L2),
+            launch_config(q, beam, r, w, nbr_vecs.element_size())[0],
+            f_ids.data_ptr(), f_d.data_ptr(),
             n_vis.data_ptr(), cmps.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -389,9 +389,46 @@ def test_kernel_coverage_rule_and_caps():
     g.nbr_vecs = None
     assert not PBEAM.kernel_covers(g, 80, 0)
     src = (kernels.CSRC / "beam_search.cu").read_text()
-    for name in ("MAX_R", "MAX_W", "MAX_BEAM"):
+    for name in ("MAX_R", "MAX_W", "MAX_BEAM", "BLOCKS_PER_SM", "CTL_BYTES",
+                 "CAND_ARRAYS"):
         assert f"constexpr int {name} = {getattr(PBEAM, name)};" in src
+    assert "__launch_bounds__(32 * WPQ, WPQ == 1 ? 1 : BLOCKS_PER_SM)" in src
     assert "beam_search" in kernels.SOURCES
     with pytest.raises(ValueError):
         PBEAM.beam_search_inline(*[torch.zeros(1)] * 8, beam=8, limit=10,
                                  metric="cosine")
+
+
+SMEM_PER_CTA = 232_448  # the most dynamic shared memory an H100 CTA may take
+
+
+@pytest.mark.parametrize("q", [1, 16, 10240])
+def test_launch_config_rule_fits_the_card(q):
+    """Across the grid of the caps, the launch rule returns one of the two
+    configurations, and its shared memory (the kernel's layout, mirrored
+    from the .cu constants) fits a CTA; small batches take four warps a
+    query, the main path's 10,240-query launches one warp a query."""
+    for r in (1, 48, 64):
+        for w in (32, 128, 256):
+            for beam in (1, 80, 2048):
+                for dtype in PBEAM._DTYPE_CODES:
+                    class G:
+                        nbr_vecs = torch.zeros((2, r, w), dtype=dtype)
+                        nbr_scale = None
+                    assert PBEAM.kernel_covers(G(), beam, 0)
+                    elem = G.nbr_vecs.element_size()
+                    wpq, smem = PBEAM.launch_config(q, beam, r, w, elem)
+                    assert wpq in (1, 4)
+                    assert smem == -(-(PBEAM.CTL_BYTES + 4 * w + 9 * beam + r * w * elem
+                                       + PBEAM.CAND_ARRAYS * PBEAM.MAX_R * 4) // 16) * 16
+                    assert smem <= SMEM_PER_CTA
+                    assert wpq == (4 if q <= 16 else 1)
+    assert PBEAM.launch_config(16, 320, 48, 128, 4)[0] == 4  # the straggler launch
+    assert PBEAM.launch_config(10240, 80, 48, 128, 4)[0] == 1  # the full launches
+    # the rule's edge: every query its own 4-warp CTA, all resident at once
+    edge = PBEAM.SMS * PBEAM.BLOCKS_PER_SM
+    assert PBEAM.launch_config(edge, 320, 48, 128, 4)[0] == 4
+    assert PBEAM.launch_config(edge + 1, 320, 48, 128, 4)[0] == 1
+    # a query state of ~86 KB leaves two CTAs an SM, and the edge moves with it
+    assert PBEAM.launch_config(2 * PBEAM.SMS, 2048, 64, 256, 4)[0] == 4
+    assert PBEAM.launch_config(2 * PBEAM.SMS + 1, 2048, 64, 256, 4)[0] == 1
