@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. the card's name and power limit;
   2. nvcc builds every kernel of the port from csrc/ into build/kernels/;
   3. each kernel against its plain PyTorch version on the card, case by case
-     (the scan against ops/bruteforce.scan_bruteforce, the beam search
+     (the scan against ops/bruteforce.scan_bruteforce, with cases that cut
+     every block's windows into several segments and log the grid, the beam search
      against ops/beam.beam_search_plain in both of its launch
      configurations, logged case by case, the scan variants v2, v3 and v3b of
      tools/ against their plain versions at two (tile, qblock) shapes, v2's
@@ -29,9 +30,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      numpy oracle, best-of-3 timings, a profiler breakdown, the kernel's own
      time by CUDA events (for the beam kernel beside the bytes its
      expansions read and its longest query's steps), and the kernel held
-     against its plain version on the main path's own inputs; the scan
-     variants also run on the
-     prefilter's 2^-2 batch, timed beside the scan kernel;
+     against its plain version on the main path's own inputs; for the scan
+     also its grid, its time at k = 1, 32 and 256, a 2,048-query sub-batch
+     that must equal its rows of the whole launch bit for bit, and the host
+     clock around the stages of batch_search; the scan variants also run
+     on the prefilter's 2^-2 batch, timed beside the scan kernel;
   6. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
      its own size: 200,000 x 128 fp32, 2,048 queries, windows of 1/4, k=10,
      the tools' generator with seed 42, through each tool's main() with
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -159,14 +163,75 @@ def kernel_cases():
     return cases
 
 
+def split_cases():
+    """Cases that cut every block's windows into several segments: 64 and
+    2,048 queries over windows of 100k to 1M rows of a 1M-row store, k = 1,
+    10 and 256, L2 and MIPS, on grid-valued fp32 data (every distance exact,
+    many exact ties across segments), and one int8 store with integer
+    queries. All exact. Yields (name, points, queries, starts, ends, k,
+    metric, options), one store at a time."""
+    rng = np.random.default_rng(4242)
+    n = 1_000_000
+
+    def windows(nq):
+        s = rng.integers(0, n - 100_000, size=nq).astype(np.int32)
+        e = np.minimum(s + rng.integers(100_000, n + 1, size=nq), n).astype(np.int32)
+        s[:2], e[:2] = 0, n  # the whole store
+        return s, e
+
+    pts = grid_values(rng, (n, D))
+    for nq in (64, 2048):
+        q = grid_values(rng, (nq, D))
+        s, e = windows(nq)
+        for metric in ("l2", "mips"):
+            for k in (1, 10, 256):
+                yield (f"split-fp32grid-{metric}-n{n}-q{nq}-k{k}", pts, q, s, e, k, metric,
+                       {"exact": True, "split": True})
+    pts = rng.integers(-128, 128, size=(n, D)).astype(np.int8)
+    q = rng.integers(-128, 128, size=(2048, D)).astype(np.float32)
+    yield (f"split-int8-l2-n{n}-q2048-k10", pts, q, *windows(2048), 10, "l2",
+           {"exact": True, "split": True})
+
+
+def scan_grid(torch, a, kw):
+    """The scan kernel's grid for one call's inputs, as its wrapper plans it:
+    the launch configuration (CTAs resident an SM, registers, spills) and
+    the segment plan (items, tiles a segment, segments a block)."""
+    from rangefilteredann_tpu_torch import kernels
+    from rangefilteredann_tpu_torch.ops import scan
+
+    data, norms, queries, starts, ends = a
+    k, metric = kw["k"], kw["metric"]
+    _, _, s_s, e_s, _ = scan.sorted_launch_args(
+        data, norms, queries, starts, ends, k, kw.get("d_eff") or data.shape[1],
+        chunk=scan.CHUNK, dtypes=scan._DTYPE_CODES, name="scan")
+    cfg = scan.launch_config(kernels.load("scan_topk"), scan._DTYPE_CODES[data.dtype], metric,
+                             k, data.device.index or 0)
+    _, _, prefix, seg, _, _ = scan.segment_plan(s_s, e_s, data.shape[0], cfg["slots"])
+    segs = torch.diff(prefix, prepend=prefix.new_zeros(1)).float()
+    return dict(cfg, items=int(prefix[-1]), seg_tiles=int(seg[0]),
+                segs_max=int(segs.max()), segs_mean=float(segs.mean()))
+
+
+def grid_note(g):
+    return (f"{g['ctas_per_sm']} CTAs an SM x {g['sms']} SMs = {g['slots']} resident, "
+            f"{g['lists']} list(s) a query, {g['items']} items of {g['seg_tiles']} tiles "
+            f"({g['seg_tiles'] * 256} points), segments a block max {g['segs_max']} mean "
+            f"{g['segs_mean']:.2f}; {g['registers']} registers, {g['spill_bytes']} spill bytes "
+            f"a thread, {g['smem_bytes']} B shared memory a CTA")
+
+
 def run_kernel_cases(torch):
     from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
     from rangefilteredann_tpu_torch.ops.scan import scan_topk
     from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
 
     worst = 0.0
-    for name, pts, q, s, e, k, metric, opt in kernel_cases():
-        ps = make_pointset(pts, metric, device="cuda")
+    stores = {}
+    for name, pts, q, s, e, k, metric, opt in itertools.chain(kernel_cases(), split_cases()):
+        if id(pts) not in stores:  # one store per array (the split cases share theirs)
+            stores = {id(pts): make_pointset(pts, metric, device="cuda")}
+        ps = stores[id(pts)]
         d = pts.shape[1]
         qp = torch.from_numpy(pad_queries(q, d, ps.d_pad)).cuda()
         st, en = torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda()
@@ -179,7 +244,15 @@ def run_kernel_cases(torch):
         torch.cuda.synchronize()
         err, excused = compare_topk(got, plain, k, opt.get("exact", False))
         worst = max(worst, err)
-        log(f"case {name} k={k}: ok, max|dd|={err:.3g}, near-ties excused={excused}")
+        note = ""
+        if opt.get("split"):
+            g = scan_grid(torch, (ps.data, ps.norms_sq, qk, st, en),
+                          {"k": k, "metric": metric, "d_eff": d_eff})
+            if g["segs_max"] < 2 or (len(q) >= 2048 and g["items"] <= g["slots"]):
+                raise AssertionError(f"case {name} did not split its blocks: {g}")
+            note = f"; grid: {grid_note(g)}"
+        log(f"case {name} k={k}: ok, {'identical' if opt.get('exact') else 'near-tie'} "
+            f"compare, max|dd|={err:.3g}, near-ties excused={excused}{note}")
     return worst
 
 
@@ -786,6 +859,79 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+SUB_BATCH = 2048  # queries of the segmentation-invariance launch
+
+
+def check_segmentation_invariance(torch, a, kw):
+    """The first SUB_BATCH midpoint-sorted queries of a batch, launched
+    alone, must give bit for bit their rows of the whole batch's launch:
+    the same blocks, cut into other segments (the segment length follows
+    the batch's total work)."""
+    from rangefilteredann_tpu_torch.ops import scan
+
+    data, norms, queries, starts, ends = a
+    full = scan.scan_topk(*a, **kw)
+    sub = torch.argsort(starts.long() + ends.long(), stable=True)[:SUB_BATCH]
+    a_sub = (data, norms, queries[sub], starts[sub], ends[sub])
+    part = scan.scan_topk(*a_sub, **kw)
+    torch.cuda.synchronize()
+    g_full, g_sub = scan_grid(torch, a, kw), scan_grid(torch, a_sub, kw)
+    if g_full["seg_tiles"] == g_sub["seg_tiles"]:
+        raise AssertionError("the two launches cut their windows alike")
+    if not (torch.equal(part[0], full[0][sub]) and torch.equal(part[1], full[1][sub])):
+        raise AssertionError("a sub-batch's results differ from the whole batch's")
+    log(f"segmentation invariance: the first {SUB_BATCH} sorted queries alone "
+        f"({g_sub['items']} items of {g_sub['seg_tiles']} tiles) == their rows of the "
+        f"{queries.shape[0]}-query launch ({g_full['items']} items of {g_full['seg_tiles']} "
+        f"tiles), bit for bit")
+
+
+def host_breakdown(torch, idx, queries, filters, qparams, nq):
+    """Host clock around the stages of one real PrefilterIndex.batch_search
+    call on a batch whose windows all take the scan. Marks, each after a
+    synchronise, sit at the entry and exit of the functions the call goes
+    through: the window bounds end where launch_range_bruteforce starts, the
+    query upload where base.scan_topk starts, the launch (wrapper and
+    kernel) where it returns, the fetch where the index's _finalize starts,
+    and finalize_output where it returns."""
+    from rangefilteredann_tpu_torch.models import base, prefilter
+
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def marked(fn, at_entry, at_exit=None):
+        def wrapper(*a, **kw):
+            mark(at_entry)
+            out = fn(*a, **kw)
+            if at_exit:
+                mark(at_exit)
+            return out
+        return wrapper
+
+    real = prefilter.launch_range_bruteforce, base.scan_topk, base.windowed_bruteforce
+    prefilter.launch_range_bruteforce = marked(real[0], "window bounds")
+    base.scan_topk = marked(real[1], "query upload", "launch")
+    base.windowed_bruteforce = marked(real[2], "gather")  # must not run here
+    idx._finalize = marked(idx._finalize, "fetch", "finalize_output")
+    try:
+        for _ in range(2):  # the second pass is the one reported
+            marks.clear()
+            mark("start")
+            idx.batch_search(queries, filters, nq, qparams)
+    finally:
+        prefilter.launch_range_bruteforce, base.scan_topk, base.windowed_bruteforce = real
+        del idx._finalize
+    if [name for name, _ in marks[1:]] != ["window bounds", "query upload", "launch", "fetch",
+                                           "finalize_output"]:
+        raise AssertionError(f"the batch did not take the scan alone: {marks}")
+    total = (marks[-1][1] - marks[0][1]) * 1e3
+    log(f"host breakdown frac2^-2 [{nq} queries]: total {total:.3f} ms; " + "; ".join(
+        f"{name} {(t - marks[j][1]) * 1e3:.3f} ms" for j, (name, t) in enumerate(marks[1:])))
+
+
 def run_prefilter_path(torch, args, worst):
     """The prefilter main path at SIFT-1M scale. Returns the scan inputs of
     its 2^-2 batch and the scan kernel's entry of the kernels line."""
@@ -882,7 +1028,16 @@ def run_prefilter_path(torch, args, worst):
             f"({streamed / 1e9:.3f} GB streamed by 32-query blocks); bound {bound_ms:.3f} ms "
             f"by {bound_by} ({flops / PEAK_FP32_FLOPS * 1e3:.3f} ms ops, "
             f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms bytes); "
-            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
+            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, {bound_ms / kernel_ms:.3f} "
+            f"of the bound")
+        log(f"scan grid {name}: {grid_note(scan_grid(torch, a, kw))}")
+        if name == "frac2^-2":  # what the list inserts cost: the same scan at other k
+            at_k = {kk: cuda_time_ms(torch, lambda: scan.scan_topk(*a, **dict(kw, k=kk)), 3)
+                    for kk in (1, 32, 256)}
+            log(f"scan kernel {name} at other k: " + ", ".join(
+                f"k={kk} {ms:.3f} ms" for kk, ms in at_k.items()))
+    check_segmentation_invariance(torch, *scan_inputs["frac2^-2"])
+    host_breakdown(torch, idx, queries, batches["frac2^-2"], qparams, args.nq)
     kernel_ms, plain_ms, bound_ms, bound_by = timed["frac2^-2"]
     return scan_inputs["frac2^-2"], {
         "name": "scan_topk",
@@ -1142,6 +1297,7 @@ def run_variant_path(torch, args, errs):
         log(f"harness {name}: work {flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB once; "
             f"bound {timed[name][2]:.4f} ms by {timed[name][3]} at the fp32 rate; best "
             f"{ms:.3f} ms; scan kernel {h.runs[prod_name][1]:.3f} ms")
+    log(f"scan grid harness: {grid_note(scan_grid(torch, h2.args, {'k': HK, 'metric': 'l2', 'd_eff': HD}))}")
     for name, h, prefix in (("scan_v3", h3d, "v3 "), ("scan_v3b", h3bd, "v3b "),
                             ("scan_v2", h2d, "v2 ")):
         err, _, _ = harness_checks(torch, h, "prod", runs(h, prefix))
@@ -1210,7 +1366,7 @@ def main() -> int:
     log(f"build: {', '.join(kernels.SOURCES)} in {time.time() - t0:.2f} s")
     for name, text in out.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 log(f"  {name}: {line.strip()}")
 
     # 3. each kernel against its plain version

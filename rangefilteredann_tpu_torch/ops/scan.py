@@ -26,22 +26,106 @@ from .bruteforce import scan_bruteforce
 SCAN_LAUNCHES = 0
 
 MAX_K = 256  # csrc/scan_topk.cu MAX_K
-CHUNK = 32  # columns per staged chunk (csrc/scan_topk.cu DK)
+CHUNK = 16  # dims per staged chunk (csrc/scan_topk.cu DK)
+QB = 32  # queries per block (csrc/scan_topk.cu QB)
+TILE = 256  # points per tile (csrc/scan_topk.cu TILE)
+MAX_SEGS = 32  # segments per block at most (csrc/scan_topk.cu MAX_SEGS)
+# The segment rule: about ITEMS_PER_SLOT items for each resident CTA, so
+# that the last items end close together, and never under MIN_SEG_TILES
+# tiles (4,096 points: an item's list set-up, pipeline fill and write-out
+# stay a few percent of its product).
+ITEMS_PER_SLOT = 8
+MIN_SEG_TILES = 16
 _DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 
-_launch_fn = None
+_bound: "dict[int, tuple]" = {}
+_configs: "dict[tuple, tuple]" = {}
 
 
-def _kernel():
-    global _launch_fn
-    if _launch_fn is None:
-        fn = kernels.load("scan_topk").scan_topk_launch
+def bind(lib):
+    """(scan_topk_launch, scan_topk_config) of a loaded library, with their
+    ctypes signatures."""
+    key = id(lib)
+    if key not in _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, ctypes.c_longlong, i, i, p, p, i, p, p, i, i, i,
-                       i, p, p, p]
-        fn.restype = i
-        _launch_fn = fn
-    return _launch_fn
+        launch, config = lib.scan_topk_launch, lib.scan_topk_config
+        launch.argtypes = [p, i, ctypes.c_longlong, i, i, p, p, i, p, p, i, i, i, i,
+                           p, p, p, p, p, i, p, p, p, p, p, p, p, i, p]
+        launch.restype = i
+        config.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        config.restype = i
+        _bound[key] = (lib, launch, config)
+    return _bound[key][1:]
+
+
+def launch_config(lib, dtype_code: int, metric: str, k: int, device_index: int = 0) -> dict:
+    """The kernel's configuration for (dtype, metric, k) on the current
+    device, asked of the library once: CTAs resident an SM, SMs, registers
+    and local (spill) bytes a thread, shared memory a CTA, lists a query."""
+    key = (id(lib), device_index, dtype_code, metric, k)
+    if key not in _configs:
+        out = (ctypes.c_int * 6)()
+        rc = bind(lib)[1](dtype_code, int(metric == METRIC_L2), k, out)
+        if rc != 0:
+            raise RuntimeError(f"scan_topk configuration failed (code {rc})")
+        _configs[key] = tuple(out)
+    per_sm, sms, regs, local, smem, lists = _configs[key]
+    return {"ctas_per_sm": per_sm, "sms": sms, "registers": regs, "spill_bytes": local,
+            "smem_bytes": smem, "lists": lists, "slots": per_sm * sms}
+
+
+def segment_plan(starts, ends, n_real: int, slots: int):
+    """Cut each block's union of windows into segments of whole tiles, and
+    order the items so that those reading the same rows run together.
+
+    starts/ends: [Q] int32 midpoint-sorted windows, on the device; blocks
+    are QB consecutive queries. Torch ops only, so nothing waits for the
+    device. Segments lie on one grid of `seg` tiles over the whole store, a
+    block's first and last clipped to its union, so every block covering a
+    grid segment reads the same rows; the items are handed out by grid
+    segment, then block. The segment length is the largest of
+    MIN_SEG_TILES, the share that gives about ITEMS_PER_SLOT items to each of
+    `slots` resident CTAs, and the length that keeps every block within
+    MAX_SEGS segments.
+
+    Returns (tile_begin, tile_end, prefix, seg, item_code, max_items):
+    tile_begin/tile_end [n_blocks] int32 the tiles of each block's union (0,
+    0 for a block of empty windows); prefix [n_blocks] int32 the inclusive
+    sum of segments per block (an item's scratch slot is its block's
+    exclusive prefix plus its segment); seg [1] int32 tiles per segment;
+    item_code [n_blocks * MAX_SEGS] int32, the items in the order they are
+    handed out, each block * MAX_SEGS + its segment (entries past
+    prefix[-1] are unused); max_items a host bound on prefix[-1]."""
+    q = starts.shape[0]
+    n_blocks = -(-q // QB)
+    pad = n_blocks * QB - q
+    s = starts.to(torch.int64).clamp(min=0)
+    e = ends.to(torch.int64).clamp(max=n_real)
+    if pad:
+        zeros = torch.zeros(pad, dtype=torch.int64, device=s.device)
+        s, e = torch.cat([s, zeros]), torch.cat([e, zeros])
+    nonempty = (e > s).view(n_blocks, QB)
+    lo = torch.where(nonempty, s.view(n_blocks, QB), n_real).amin(1)
+    hi = torch.where(nonempty, e.view(n_blocks, QB), 0).amax(1)
+    has = nonempty.any(1)
+    tile_begin = torch.where(has, lo // TILE, 0)
+    tile_end = torch.where(has, (hi + TILE - 1) // TILE, 0)
+    tiles = tile_end - tile_begin
+    cap = ITEMS_PER_SLOT * slots
+    seg = torch.maximum((tiles.sum() + cap - 1) // cap,
+                        (tiles.max() + MAX_SEGS - 2) // (MAX_SEGS - 1)).clamp(min=MIN_SEG_TILES)
+    # a block's grid segments: at most ceil(tiles / seg) + 1 <= MAX_SEGS, so
+    # items <= sum(tiles) / seg + 2 n_blocks <= cap + 2 n_blocks
+    first = tile_begin // seg
+    segs = torch.where(has, (tile_end + seg - 1) // seg - first, 0)
+    prefix = torch.cumsum(segs, 0)
+    slot = torch.arange(MAX_SEGS, device=s.device)
+    block = torch.arange(n_blocks, device=s.device)[:, None]
+    key = torch.where(slot < segs[:, None], (first[:, None] + slot) * n_blocks + block,
+                      torch.iinfo(torch.int64).max)
+    item_code = torch.argsort(key.flatten(), stable=True)
+    return (tile_begin.to(torch.int32), tile_end.to(torch.int32), prefix.to(torch.int32),
+            seg.view(1).to(torch.int32), item_code.to(torch.int32), cap + 2 * n_blocks)
 
 
 def scan_topk(
@@ -120,8 +204,11 @@ def sorted_launch_args(data, norms_sq, queries, starts, ends, k, d_eff, *,
             ends[order].contiguous(), d_stream)
 
 
-def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
-    global SCAN_LAUNCHES
+def launch(lib, data, norms_sq, queries, starts, ends, k, metric, d_eff, stream,
+           device_index=0):
+    """The kernel's launch on `lib` (the built library): sort, plan, scratch,
+    then the scan and merge kernels on `stream`. Returns (dists, ids, plan),
+    plan being segment_plan's."""
     dev = data.device
     n_rows, d_pad = data.shape
     order, qs, s_s, e_s, d_stream = sorted_launch_args(
@@ -131,19 +218,37 @@ def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
-        return out_d, out_i
-    d_sorted = torch.empty_like(out_d)
-    i_sorted = torch.empty_like(out_i)
-    with torch.cuda.device(dev):
-        rc = _kernel()(
-            data.data_ptr(), _DTYPE_CODES[data.dtype], n_rows, d_pad, d_stream,
-            norms_sq.data_ptr(), qs.data_ptr(), d_stream, s_s.data_ptr(),
-            e_s.data_ptr(), q, k, int(metric == METRIC_L2), n_rows,
-            d_sorted.data_ptr(), i_sorted.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        return out_d, out_i, None
+    code = _DTYPE_CODES[data.dtype]
+    slots = launch_config(lib, code, metric, k, device_index)["slots"]
+    if slots < 1:
+        raise RuntimeError(f"the scan kernel fits no SM at k={k}")
+    plan = segment_plan(s_s, e_s, n_rows, slots)
+    tile_begin, tile_end, prefix, seg, item_code, max_items = plan
+    part_d = torch.empty(max_items * QB * k, dtype=torch.float32, device=dev)
+    part_i = torch.empty(max_items * QB * k, dtype=torch.int32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    kth = torch.full((q,), float("inf"), dtype=torch.float32, device=dev)
+    rc = bind(lib)[0](
+        data.data_ptr(), code, n_rows, d_pad, d_stream, norms_sq.data_ptr(),
+        qs.data_ptr(), d_stream, s_s.data_ptr(), e_s.data_ptr(), q, k,
+        int(metric == METRIC_L2), n_rows, tile_begin.data_ptr(), tile_end.data_ptr(),
+        prefix.data_ptr(), seg.data_ptr(), item_code.data_ptr(), tile_begin.shape[0],
+        counter.data_ptr(), kth.data_ptr(),
+        part_d.data_ptr(), part_i.data_ptr(), order.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), slots, stream)
     if rc != 0:
         raise RuntimeError(f"scan_topk launch failed (code {rc})")
-    SCAN_LAUNCHES += 1
-    out_d[order] = d_sorted
-    out_i[order] = i_sorted
+    return out_d, out_i, plan
+
+
+def _scan_cuda(data, norms_sq, queries, starts, ends, k, metric, d_eff):
+    global SCAN_LAUNCHES
+    dev = data.device
+    with torch.cuda.device(dev):
+        out_d, out_i, plan = launch(
+            kernels.load("scan_topk"), data, norms_sq, queries, starts, ends, k, metric,
+            d_eff, torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    if plan is not None:
+        SCAN_LAUNCHES += 1
     return out_d, out_i

@@ -1,8 +1,12 @@
-// A CPU stand-in for the CUDA subset that csrc/beam_search.cu uses, so the
-// kernel's own source runs on the CPU in the tests (tests/test_torch_beam_emulated.py).
+// A CPU stand-in for the CUDA subset that csrc/beam_search.cu and
+// csrc/scan_topk.cu use, so the kernels' own sources run on the CPU in the
+// tests (tests/test_torch_beam_emulated.py, tests/test_torch_scan_emulated.py).
 // Every CUDA thread of a CTA is a std::thread; a warp's collectives (ballot,
-// shuffle, __syncwarp) meet at a barrier of its 32 threads, __syncthreads at
-// one of the CTA's; CTAs run one after another. The kernel calls every
+// shuffle, reduce, __syncwarp) meet at a barrier of its 32 threads,
+// __syncthreads at one of the CTA's. emu_launch runs the CTAs one after
+// another; emu_launch_concurrent runs them all at once, as a persistent grid
+// whose CTAs share a work counter needs. The device has EMU_SMS SMs and one
+// CTA fits each (cudaOccupancyMaxActiveBlocksPerMultiprocessor). The kernel calls every
 // collective with all 32 lanes converged, which is what this emulation
 // assumes. The test rewrites the source's launch, its extern shared array and
 // its inline PTX before compiling: an asynchronous copy becomes a copy made
@@ -15,6 +19,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -23,25 +28,61 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(x)
 #define __restrict__
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 struct dim3 { unsigned x, y, z; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+constexpr int EMU_SMS = 2;
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class K> inline int cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+template <class K> inline int cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  *a = {0, 0};
+  return cudaSuccess;
+}
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+inline int cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = EMU_SMS; return cudaSuccess; }
 inline int cudaGetLastError() { return cudaSuccess; }
 inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<size_t>(p); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class V>
 inline V __ldg(const V* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicMin(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
+  return old;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v > old && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {}
+  return old;
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= unsigned((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 
 struct EmuWarp { std::barrier<> bar{32}; unsigned u[32]; };
 struct EmuBlock {
@@ -78,6 +119,51 @@ inline V __shfl_xor_sync(unsigned, V v, int o) {
   w.bar.arrive_and_wait();
   return r;
 }
+template <class V>
+inline V __shfl_sync(unsigned, V v, int src) {
+  static_assert(sizeof(V) == 4, "32-bit values");
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31;
+  std::memcpy(&w.u[lane], &v, 4);
+  w.bar.arrive_and_wait();
+  V r;
+  std::memcpy(&r, &w.u[src & 31], 4);
+  w.bar.arrive_and_wait();
+  return r;
+}
+template <class V>
+inline V __shfl_up_sync(unsigned, V v, unsigned delta) {
+  static_assert(sizeof(V) == 4, "32-bit values");
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31;
+  std::memcpy(&w.u[lane], &v, 4);
+  w.bar.arrive_and_wait();
+  V r = v;
+  if (lane >= int(delta)) std::memcpy(&r, &w.u[lane - delta], 4);
+  w.bar.arrive_and_wait();
+  return r;
+}
+// A warp-wide reduction of one 32-bit value per lane.
+template <class F>
+inline unsigned emu_reduce(unsigned v, F f) {
+  EmuWarp& w = emu_warp();
+  w.u[threadIdx.x & 31] = v;
+  w.bar.arrive_and_wait();
+  unsigned r = w.u[0];
+  for (int i = 1; i < 32; ++i) r = f(r, w.u[i]);
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline int __any_sync(unsigned, int pred) { return __ballot_sync(0xffffffffu, pred) != 0; }
+inline int __reduce_add_sync(unsigned, int v) {
+  return int(emu_reduce(unsigned(v), [](unsigned a, unsigned b) { return a + b; }));
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  return int(emu_reduce(unsigned(v), [](unsigned a, unsigned b) { return unsigned(min(int(a), int(b))); }));
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  return int(emu_reduce(unsigned(v), [](unsigned a, unsigned b) { return unsigned(max(int(a), int(b))); }));
+}
 template <class K, class... A>
 void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t, A... args) {
   for (int b = 0; b < grid; ++b) {
@@ -94,4 +180,25 @@ void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t, A...
       });
     for (auto& t : ts) t.join();
   }
+}
+template <class K, class... A>
+void emu_launch_concurrent(K kernel, int grid, int threads, size_t smem, cudaStream_t, A... args) {
+  std::vector<std::unique_ptr<EmuBlock>> blks;
+  std::vector<std::vector<unsigned char>> mems;
+  std::vector<std::thread> ts;
+  mems.reserve(grid);
+  for (int b = 0; b < grid; ++b) {
+    blks.push_back(std::make_unique<EmuBlock>(threads));
+    mems.emplace_back(smem + 16);
+    blks.back()->smem = mems.back().data();
+  }
+  for (int b = 0; b < grid; ++b)
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, b, t] {
+        threadIdx = {unsigned(t), 0, 0};
+        blockIdx = {unsigned(b), 0, 0};
+        emu_block = blks[b].get();
+        kernel(args...);
+      });
+  for (auto& t : ts) t.join();
 }
