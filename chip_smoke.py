@@ -35,15 +35,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      that must equal its rows of the whole launch bit for bit, and the host
      clock around the stages of batch_search; the scan variants also run
      on the prefilter's 2^-2 batch, timed beside the scan kernel;
-  6. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
+  6. the trees, after the graph path (which saves its graph in a cache
+     directory of the run): the Vamana-leaf RangeFilterTreeIndex at
+     bench.py's tree configuration (the graph path's 200,000 x 128 data,
+     cutoff 1000, split 2, R=48, L=100, alpha=1.2), row 0 loaded from the
+     graph's cache and rows 1-8 built on the card; 10,240 queries at k=10,
+     fraction 2^-2, beam 40, final_beam_multiply 2 for fenwick,
+     optimized_postfilter, three_split and smart combined, each with the
+     launch counts reset just before one call and read just after,
+     recall@10 >= 0.99 against the float64 oracle, best-of-2 wall, the
+     query-mode searches that missed the beam kernel, the rows given
+     inline blocks and a host breakdown (planning beside the phases), a
+     profile of fenwick, and one of its beam-kernel launches against the
+     plain version; then the prefilter-leaf tree over the prefilter path's
+     1M store, fenwick on its 2^-2 batch (recall@10 1.0, the scan kernel);
+  7. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
      its own size: 200,000 x 128 fp32, 2,048 queries, windows of 1/4, k=10,
      the tools' generator with seed 42, through each tool's main() with
      the launch counts reset just before and read just after, then the
      --dups inputs; each variant against a float64 oracle, its plain
      version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
-  7. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+  8. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
      launches on its main path, its worst deviation, its times and bound;
-  8. the card line again, then {"ok": true, "device": {...}} as the last line.
+  9. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -52,8 +66,10 @@ import argparse
 import functools
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,6 +84,7 @@ D, K = 128, 10  # SIFT's width; the protocol's k
 SAMPLE = 256  # queries per batch held against the float64 oracle
 FRACTIONS = {"frac2^-2": 2.0 ** -2, "frac2^-12": 2.0 ** -12}
 RTOL, ATOL = 1e-5, 1e-4
+PLAIN_BLOCK = 16384  # windows per plain-scan call on the prefilter-leaf tree's launch
 
 
 def log(msg: str) -> None:
@@ -705,12 +722,13 @@ TIE_EPS = 1e-3
 FLT_MAX = np.finfo(np.float32).max
 
 
-def check_results(oracle, queries, filters, ids, dists, k, sample, hi_side="left"):
+def check_results(oracle, queries, filters, ids, dists, k, sample, hi_side="left",
+                  pad_id=0xFFFFFFFF):
     """(recall, set-overlap recall, notes) of a batch's results on `sample`
-    queries. Results must be the returned points first, padding (uint32 -1,
-    FLT_MAX) after them, no more points than the window holds; every returned
-    id must lie in its query's window, and every distance must match the
-    oracle's distance of that id."""
+    queries. Results must be the returned points first, padding (pad_id:
+    uint32 -1, or 0 for the trees; FLT_MAX) after them, no more points than
+    the window holds; every returned id must lie in its query's window, and
+    every distance must match the oracle's distance of that id."""
     if ids.shape != (len(queries), k) or dists.shape != (len(queries), k):
         raise AssertionError(f"result shapes {ids.shape} {dists.shape}")
     if not np.isfinite(dists).all():
@@ -723,7 +741,7 @@ def check_results(oracle, queries, filters, ids, dists, k, sample, hi_side="left
         real = dists[qi] < FLT_MAX
         nr = int(real.sum())
         if (nr > kk or not real[:nr].all()
-                or not (ids[qi, nr:] == np.uint32(0xFFFFFFFF)).all()):
+                or not (ids[qi, nr:] == np.uint32(pad_id)).all()):
             raise AssertionError(f"query {qi}: {nr} results for a window of {kk} "
                                  "points, or padding out of place")
         if kk == 0:  # an empty window, rightly answered with padding only
@@ -933,8 +951,9 @@ def host_breakdown(torch, idx, queries, filters, qparams, nq):
 
 
 def run_prefilter_path(torch, args, worst):
-    """The prefilter main path at SIFT-1M scale. Returns the scan inputs of
-    its 2^-2 batch and the scan kernel's entry of the kernels line."""
+    """The prefilter main path at SIFT-1M scale. Returns its data, the scan
+    inputs of its 2^-2 batch and the scan kernel's entry of the kernels
+    line."""
     import rangefilteredann_tpu_torch as P
     from rangefilteredann_tpu_torch.models import base
     from rangefilteredann_tpu_torch.ops import beam, scan
@@ -1039,7 +1058,7 @@ def run_prefilter_path(torch, args, worst):
     check_segmentation_invariance(torch, *scan_inputs["frac2^-2"])
     host_breakdown(torch, idx, queries, batches["frac2^-2"], qparams, args.nq)
     kernel_ms, plain_ms, bound_ms, bound_by = timed["frac2^-2"]
-    return scan_inputs["frac2^-2"], {
+    return (points, labels, queries, batches), scan_inputs["frac2^-2"], {
         "name": "scan_topk",
         "route": "cuda",
         "source": "rangefilteredann_tpu_torch/csrc/scan_topk.cu",
@@ -1054,10 +1073,12 @@ def run_prefilter_path(torch, args, worst):
     }
 
 
-def run_graph_path(torch, args, worst):
-    """The graph main path at bench.py's postfilter scale. Returns the beam
+def run_graph_path(torch, args, worst, cache):
+    """The graph main path at bench.py's postfilter scale, its graph saved
+    under `cache` once the build is timed. Returns its data, the graph's adjacency and the beam
     kernel's entry of the kernels line."""
     import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.models import base
     from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
     from rangefilteredann_tpu_torch.ops import beam, scan
 
@@ -1067,14 +1088,22 @@ def run_graph_path(torch, args, worst):
     log(f"graph data: {args.graph_n} x {D} fp32, {args.graph_nq} queries, made in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    idx = P.PostfilterVamanaIndex(points, labels, P.BuildParams(R=48, L=100, alpha=1.2))
+    idx = P.PostfilterVamanaIndex(points, labels, tree_build_params(P, None))
     torch.cuda.synchronize()
+    built = time.time() - t0
     g = idx._graph
+    # the tree's row 0 loads this file: written here, after the build's
+    # clock stopped, under the name the index itself would have used
+    t0 = time.time()
+    fname = base.whole_dataset_cache(cache, tree_build_params(P, cache),
+                                     float(labels.min()), float(labels.max()), len(points))
+    np.savez_compressed(fname, nbrs=g.nbrs_host, fingerprint=idx._fp)
     deg = (g.nbrs_host >= 0).sum(axis=1)
     log(f"graph index: PostfilterVamanaIndex on {idx.device} (R=48, L=100, alpha=1.2) "
-        f"built in {time.time() - t0:.1f} s; degree mean {deg.mean():.2f} max {deg.max()}; "
+        f"built in {built:.1f} s; degree mean {deg.mean():.2f} max {deg.max()}; "
         f"inline blocks {list(g.nbr_vecs.shape) if g.nbr_vecs is not None else None} "
-        f"{g.inline_dtype}")
+        f"{g.inline_dtype}; cache file {os.path.basename(fname)} written in "
+        f"{time.time() - t0:.1f} s after the build")
     if g.inline_dtype != torch.float32:
         raise AssertionError(f"inline blocks are {g.inline_dtype}, not float32")
     qparams = P.build_query_params(K, 80, final_beam_multiply=2)
@@ -1177,7 +1206,7 @@ def run_graph_path(torch, args, worst):
     bound_ms, bound_by = bound(tot[2], tot[3], PEAK_FP32_FLOPS)
     log(f"beam kernel per batch_search: {tot[0]:.3f} ms over {len(captured)} launches "
         f"(plain {tot[1]:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}")
-    return {
+    return (points, labels, queries, batches), g.nbrs_host, {
         "name": "beam_search",
         "route": "cuda",
         "source": "rangefilteredann_tpu_torch/csrc/beam_search.cu",
@@ -1190,6 +1219,299 @@ def run_graph_path(torch, args, worst):
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def tree_build_params(P, cache):
+    """The graph's and the tree's build (bench.py:48-49, :328), with one
+    cache directory for the run (None: no cache): the tree's row 0 is the
+    graph's build."""
+    return P.BuildParams(R=48, L=100, alpha=1.2, cache_path=cache)
+
+
+TREE_CUTOFF, TREE_SPLIT = 1000, 2  # bench.py:353
+TREE_BEAM, TREE_FM = 40, 2  # bench.py:375-377
+# (name, query_method, min_query_to_bucket_ratio): smart combined is
+# optimized_postfilter with the ratio of tests/test_tree.py:141
+TREE_METHODS = (("fenwick", "fenwick", None),
+                ("optimized_postfilter", "optimized_postfilter", None),
+                ("three_split", "three_split", None),
+                ("smart_combined", "optimized_postfilter", 1.5))
+
+
+def tree_breakdown(torch, tree, queries, filters, qparams, method, nq):
+    """Host clock around the stages of one real RangeFilterTreeIndex.
+    batch_search call: marks, each after a synchronise, at the entry and
+    exit of the functions it calls (the planner, plan_row_inline, the
+    single-shot, doubling and brute-force phases, the merge and
+    finalize_output). Returns (total ms, {stage: ms} with "other" holding
+    the rest, {phase: tasks})."""
+    from rangefilteredann_tpu_torch.models import range_filter_tree as rft
+
+    spans = {}
+
+    def marked(fn, name):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    stages = {"_plan_batch_native": "plan", "_plan_batch_python": "plan",
+              "_run_single_shot": "single-shot", "_run_doubling": "doubling",
+              "_merge": "merge"}
+    for attr, name in stages.items():
+        setattr(tree, attr, marked(getattr(tree, attr), name))
+    tasks = {}
+    real_run = tree._run_single_shot, tree._run_doubling
+
+    def counted(fn, name, arg=0):  # the tasks a phase gets: len(positional arg)
+        def wrapper(*a, **kw):
+            tasks[name] = len(a[arg])
+            return fn(*a, **kw)
+        return wrapper
+
+    tree._run_single_shot = counted(real_run[0], "single-shot")
+    tree._run_doubling = counted(real_run[1], "doubling")
+    real = rft.plan_row_inline, rft.batched_range_bruteforce, rft.finalize_output
+    rft.plan_row_inline = marked(real[0], "inline blocks")
+    rft.batched_range_bruteforce = counted(marked(real[1], "brute force"), "brute force", 3)
+    rft.finalize_output = marked(real[2], "finalize_output")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree.batch_search(queries, filters, nq, method, qparams)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        rft.plan_row_inline, rft.batched_range_bruteforce, rft.finalize_output = real
+        for attr in stages:
+            delattr(tree, attr)
+    spans["other"] = total - sum(spans.values())
+    return total, spans, tasks
+
+
+def run_tree_path(torch, args, cache, data, flat_nbrs):
+    """The Vamana-leaf B-WST at bench.py's tree configuration over the graph
+    path's data, row 0 loaded from the graph's cache, the other rows built on
+    the card; then each query method on the 2^-2 batch, with every kernel's
+    launch count reset just before one call and read just after."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.models import base
+    from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+    from rangefilteredann_tpu_torch import native
+    from rangefilteredann_tpu_torch.models import range_filter_tree as rft
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    if not native.available():  # the phase measures the native planners
+        raise AssertionError("the native planners did not build (g++ missing?)")
+    log(f"native planners: {native.library_path()}")
+    points, labels, queries, batches = data
+    filters = batches["frac2^-2"]
+    nq = len(queries)
+    bp = tree_build_params(P, cache)
+    offsets = rft.build_offset_rows(len(points), TREE_CUTOFF, TREE_SPLIT)
+    row_of = {len(o) - 1: r for r, o in enumerate(offsets)}
+    builds, loads = {}, []
+    real_build, real_load = rft.build_vamana_graph, rft.load_cached_nbrs
+
+    def timed_build(ps, s2g, off, bp_, seed):
+        t0 = time.time()
+        g = real_build(ps, s2g, off, bp_, seed=seed)
+        torch.cuda.synchronize()
+        builds[row_of[len(off) - 1]] = time.time() - t0
+        return g
+
+    def recorded_load(fname, fp):
+        loads.append(fname)
+        return real_load(fname, fp)
+
+    rft.build_vamana_graph, rft.load_cached_nbrs = timed_build, recorded_load
+    t0 = time.time()
+    try:
+        tree = P.RangeFilterTreeIndex(points, labels, cutoff=TREE_CUTOFF,
+                                      split_factor=TREE_SPLIT, build_params=bp)
+    finally:
+        rft.build_vamana_graph, rft.load_cached_nbrs = real_build, real_load
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    canon = base.whole_dataset_cache(cache, bp, float(labels.min()), float(labels.max()),
+                                     len(points))
+    if loads != [canon] or sorted(builds) != list(range(1, len(offsets))) or \
+            not np.array_equal(tree._graphs[0].nbrs_host, flat_nbrs):
+        raise AssertionError(f"row 0 did not load the graph's cache: loads {loads}, "
+                             f"rows built {sorted(builds)}")
+    log(f"tree index: RangeFilterTreeIndex on {tree.device} ({len(offsets)} rows, cutoff "
+        f"{TREE_CUTOFF}, split {TREE_SPLIT}, R=48, L=100, alpha=1.2, native planners "
+        f"{native.available()}) in {total:.1f} s; row 0 "
+        f"loaded from the graph's cache {os.path.basename(canon)}; rows built: " + ", ".join(
+            f"row {r} ({len(offsets[r]) - 1} buckets) {builds[r]:.1f} s" for r in sorted(builds)))
+    log(f"tree rows: device bytes {sum(g.device_bytes() for g in tree._graphs)} "
+        f"(adjacency + slab maps, no inline blocks); int8 inline blocks of a row "
+        f"{tree._graphs[0].inline_bytes(tree._ps, torch.int8)} B, budget "
+        f"{base.TREE_INLINE_BUDGET} B")
+
+    oracle = Oracle(points, labels)
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    plain_calls = [0, 0]
+    captured = {}  # method -> its largest beam kernel launch (a, kw, out)
+    real_inline, real_plain = pv.beam_search_inline, pv.batched_beam_search
+
+    def recording_inline(*a, **kw):  # keeps each method's largest launch
+        out = real_inline(*a, **kw)
+        if name not in captured or a[4].shape[0] > captured[name][0][4].shape[0]:
+            captured[name] = (a, kw, out)
+        return out
+
+    def counting_plain(*a, **kw):  # query-mode searches that missed the kernel
+        plain_calls[0] += 1
+        plain_calls[1] += a[4].shape[0]
+        return real_plain(*a, **kw)
+
+    for name, method, ratio in TREE_METHODS:
+        qparams = P.build_query_params(K, TREE_BEAM, final_beam_multiply=TREE_FM,
+                                       min_query_to_bucket_ratio=ratio)
+        plain_calls[:] = [0, 0]
+        pv.beam_search_inline, pv.batched_beam_search = recording_inline, counting_plain
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        t0 = time.perf_counter()
+        try:
+            ids, dists = tree.batch_search(queries, filters, nq, method, qparams)
+        finally:
+            launches, scan_launches = beam.BEAM_LAUNCHES, scan.SCAN_LAUNCHES  # just after
+            pv.beam_search_inline, pv.batched_beam_search = real_inline, real_plain
+        first = time.perf_counter() - t0
+        rec, overlap, notes = check_results(oracle, queries, filters, ids, dists, K, sample,
+                                            pad_id=0)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tree.batch_search(queries, filters, nq, method, qparams)
+            walls.append(time.perf_counter() - t0)
+        best = min(walls)
+        total, spans, tasks = tree_breakdown(torch, tree, queries, filters, qparams,
+                                             method, nq)
+        log(f"tree {name} frac2^-2 beam {TREE_BEAM} x{TREE_FM}: recall@{K} {rec} on "
+            f"{len(sample)} queries (id-set overlap {overlap}); wall best of 2 "
+            f"{best * 1e3:.3f} ms, QPS {nq / best:.1f}, runs "
+            f"{[round(w * 1e3, 3) for w in walls]} (first call {first * 1e3:.3f} ms); "
+            f"beam_search launches {launches}, scan_topk launches {scan_launches}; "
+            f"query-mode batched_beam_search calls {plain_calls[0]} over {plain_calls[1]} "
+            f"searches; inline rows {sorted(tree._inline_attached)}; device bytes "
+            f"{sum(g.device_bytes() for g in tree._graphs)}")
+        log(f"tree {name} host breakdown: total {total:.3f} ms; " + "; ".join(
+            f"{k} {ms:.3f} ms" for k, ms in spans.items()) + f"; tasks {tasks}")
+        for note in notes[:3]:
+            log(f"  near-tie at the k-th place, {note}")
+        if rec < 0.99 or launches < 1:
+            raise AssertionError(f"tree {name}: recall@{K} {rec} < 0.99 or no beam_search "
+                                 f"launch ({launches})")
+        if name == "fenwick":
+            wall, dev, rows = device_breakdown(
+                torch, lambda: tree.batch_search(queries, filters, nq, method, qparams))
+            log(f"tree fenwick profile: wall {wall:.3f} ms, device busy {dev:.3f} ms "
+                f"({100 * dev / wall:.1f}%), " + "; ".join(f"{k} {ms:.3f} ms" for k, ms in rows))
+
+    # each method's largest beam kernel launch (single-shot for fenwick,
+    # doubling for the others) against its plain version on the same inputs
+    # (int8 blocks with a scale: held at recall level, as in the beam cases)
+    for name, (a, kw, out) in captured.items():
+        plain = beam.beam_search_plain(*a, **kw)
+        torch.cuda.synchronize()
+        gi, pi = out[0].cpu().numpy(), plain[0].cpu().numpy()
+        mism = float((gi != pi).mean())
+        same_vis = float((out[2] == plain[2]).double().mean())
+        log(f"tree {name} beam kernel launch [{gi.shape[0]} queries, beam {kw['beam']}, "
+            f"{a[0].dtype} blocks{' with a scale' if a[3] is not None else ''}]: {mism:.4%} "
+            f"of frontier ids differ from the plain version, n_vis equal on {same_vis:.4f} "
+            f"of queries")
+        if mism >= 0.02:
+            raise AssertionError(f"tree {name} beam kernel launch: {mism:.4%} ids differ")
+
+
+def run_prefilter_tree_path(torch, args, data):
+    """The prefilter-leaf B-WST (no build) over the prefilter path's store,
+    fenwick on its 2^-2 batch: every covered bucket is an exact window. The
+    scan kernel's launch of that call is then held against its plain
+    version on the launch's own inputs. Returns the largest |dd|."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.models import base
+    from rangefilteredann_tpu_torch.ops import beam, scan
+    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
+
+    points, labels, queries, batches = data
+    filters = batches["frac2^-2"]
+    nq = len(queries)
+    t0 = time.time()
+    tree = P.RangeFilterTreeIndex(points, labels, cutoff=TREE_CUTOFF,
+                                  split_factor=TREE_SPLIT, leaf="prefilter")
+    torch.cuda.synchronize()
+    log(f"prefilter-leaf tree: {len(points)} x {D} on {tree.device}, "
+        f"{len(tree._offsets)} rows, made in {time.time() - t0:.1f} s")
+    qparams = P.build_query_params(K, K)
+    captured = []
+    real_scan = base.scan_topk
+
+    def recording_scan(*a, **kw):  # keeps the inputs and output of each launch
+        out = real_scan(*a, **kw)
+        captured.append((a, kw, out))
+        return out
+
+    base.scan_topk = recording_scan
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+    try:
+        ids, dists = tree.batch_search(queries, filters, nq, "fenwick", qparams)
+    finally:
+        launches, beam_launches = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+        base.scan_topk = real_scan
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    rec, overlap, _ = check_results(Oracle(points, labels), queries, filters, ids, dists,
+                                    K, sample, pad_id=0)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tree.batch_search(queries, filters, nq, "fenwick", qparams)
+        walls.append(time.perf_counter() - t0)
+    best = min(walls)
+    total, spans, tasks = tree_breakdown(torch, tree, queries, filters, qparams,
+                                         "fenwick", nq)
+    log(f"prefilter-leaf tree fenwick frac2^-2: recall@{K} {rec} on {len(sample)} queries "
+        f"(id-set overlap {overlap}); wall best of 2 {best * 1e3:.3f} ms, QPS "
+        f"{nq / best:.1f}, runs {[round(w * 1e3, 3) for w in walls]}; scan_topk launches "
+        f"{launches}, beam_search launches {beam_launches}")
+    log(f"prefilter-leaf tree fenwick host breakdown: total {total:.3f} ms; " + "; ".join(
+        f"{k} {ms:.3f} ms" for k, ms in spans.items()) + f"; tasks {tasks}")
+    if rec != 1.0 or launches < 1:
+        raise AssertionError(f"prefilter-leaf tree: recall@{K} {rec} or no scan_topk launch")
+
+    # every window of the launch against the plain version, under the scan
+    # cases' rule (ids equal except at near-ties, distances within RTOL/ATOL),
+    # the plain version run in blocks of windows to bound its [Q, tile] buffers
+    worst = 0.0
+    for a, kw, out in captured:
+        data, norms, q_dev, st, en = a
+        k, metric = kw["k"], kw["metric"]
+        t0 = time.time()
+        parts = [scan_bruteforce(data, norms, q_dev[j:j + PLAIN_BLOCK], st[j:j + PLAIN_BLOCK],
+                                 en[j:j + PLAIN_BLOCK], k + 1, metric)
+                 for j in range(0, q_dev.shape[0], PLAIN_BLOCK)]
+        plain = tuple(torch.cat(x) for x in zip(*parts))
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        err, excused = compare_topk(out, plain, k, exact=False)
+        worst = max(worst, err)
+        width = (en.long() - st.long()).clamp(min=0)
+        kernel_ms = cuda_time_ms(torch, lambda: scan.scan_topk(*a, **kw), 3)
+        log(f"prefilter-leaf tree scan launch [{q_dev.shape[0]} windows of {int(width.min())}-"
+            f"{int(width.max())} rows, {int(width.sum())} in all, x {data.shape[0]} rows]: "
+            f"kernel == plain on every window, max|dd|={err:.3g}, near-ties excused="
+            f"{excused}; kernel {kernel_ms:.3f} ms, plain {plain_s:.1f} s")
+        log(f"scan grid prefilter-leaf tree: {grid_note(scan_grid(torch, a, kw))}")
+    return worst
 
 
 def run_variants_on_batch(torch, inputs, b1_ms, errs):
@@ -1386,19 +1708,29 @@ def main() -> int:
         f"max|dd| {variant_errs}")
 
     # 4-5. the main paths
-    batch_inputs, scan_entry = run_prefilter_path(torch, args, scan_worst)
+    prefilter_data, batch_inputs, scan_entry = run_prefilter_path(torch, args, scan_worst)
     run_variants_on_batch(torch, batch_inputs, scan_entry["ms"], variant_errs)
     del batch_inputs
     entries = [scan_entry]
     torch.cuda.empty_cache()
-    entries.append(run_graph_path(torch, args, beam_worst))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as cache:
+        graph_data, flat_nbrs, beam_entry = run_graph_path(torch, args, beam_worst, cache)
+        entries.append(beam_entry)
+        torch.cuda.empty_cache()
+        # 6. the trees
+        run_tree_path(torch, args, cache, graph_data, flat_nbrs)
+    del graph_data, flat_nbrs
     torch.cuda.empty_cache()
-    # 6. the scan-variant harness
+    tree_err = run_prefilter_tree_path(torch, args, prefilter_data)
+    scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], tree_err)
+    del prefilter_data
+    torch.cuda.empty_cache()
+    # 7. the scan-variant harness
     entries += run_variant_path(torch, args, variant_errs)
 
-    # 7. inventory
+    # 8. inventory
     print(json.dumps({"kernels": entries}), flush=True)
-    # 8. the card, then the result
+    # 9. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,8 +1,10 @@
 """Host-side machinery for the index classes.
 
-Counterpart of rangefilteredann_tpu/models/base.py:169-392, :484-537 and
-:540: the prefilter routing below, the inline-block budget of the graph
-indices (maybe_attach_inline) and their graph-cache helpers. The host
+Counterpart of rangefilteredann_tpu/models/base.py:169-392, :395-481,
+:484-537 and :540: the prefilter routing below, the inline-block budgets of
+the graph indices (maybe_attach_inline) and the trees' rows
+(plan_row_inline), the trees' row residency (RowResidency) and the
+graph-cache helpers. The host
 groups a batch's queries by window width: windows up to window_gather_max()
 gather their own rows (windowed_bruteforce, grouped in power-of-two classes
 and chunked by GATHER_BYTES_BUDGET); wider windows are midpoint-sorted and go
@@ -190,6 +192,81 @@ def maybe_attach_inline(graph, ps) -> bool:
             graph.attach_inline(ps, dtype)
             return True
     return False
+
+
+# Device bytes a tree gives the int8 inline blocks of the rows a batch
+# touches most (the JAX package's RFANN_TREE_INLINE_BUDGET default). A
+# 200k x 48 row's int8 blocks take 1.27 GB, so two rows fit; raising it for
+# the card's 80 GB is a decision for later (ROADMAP).
+TREE_INLINE_BUDGET = int(3.5e9)
+
+
+def plan_row_inline(ps, graphs, attached: set, rows: np.ndarray,
+                    counts: np.ndarray) -> None:
+    """Attach int8 inline neighbour blocks (int8-quantized with a scale over
+    a float store, exact over a byte store) to the tree rows that `counts`
+    says a batch touches most, within TREE_INLINE_BUDGET bytes, and drop
+    those of attached rows outside that pick. Rows that do not fit run the
+    search without blocks. A repeated workload picks the same rows and
+    attaches once. Does nothing for a store on the CPU, as the JAX package
+    does nothing there: the CPU tests attach blocks themselves."""
+    if ps.device.type == "cpu":
+        return
+    dtype = ps.data.dtype if ps.data.dtype in (torch.int8, torch.uint8) else torch.int8
+    order = np.asarray(rows)[np.argsort(-np.asarray(counts))]
+    picked, used = [], 0
+    for r in order:
+        r = int(r)
+        b = graphs[r].inline_bytes(ps, dtype)
+        if used + b <= TREE_INLINE_BUDGET:
+            picked.append(r)
+            used += b
+    for r in list(attached):
+        if r not in picked:
+            g = graphs[r]
+            g.nbr_vecs = g.nbr_norms = g.nbr_scale = None
+            attached.discard(r)
+    for r in picked:
+        g = graphs[r]
+        if g.nbr_vecs is None and g.nbrs_dev is not None:
+            g.attach_inline(ps, dtype)
+            attached.add(r)
+        elif g.nbr_vecs is not None:
+            attached.add(r)
+
+
+class RowResidency:
+    """LRU device residency of a tree's SlabGraph rows under a byte budget.
+
+    A tree whose rows together exceed the card's memory keeps them on the
+    host and uploads a row when a batch routes to it; queries at one filter
+    fraction touch few rows. budget=None (the default) keeps every row
+    resident."""
+
+    def __init__(self, graphs, budget, device):
+        self.graphs = graphs
+        self.budget = budget
+        self.device = device
+        self.order = []
+        if budget is not None:
+            for g in graphs:
+                if g is not None:
+                    g.evict_device()
+
+    def touch(self, r: int):
+        g = self.graphs[r]
+        if self.budget is None:
+            return g
+        g.ensure_device(self.device)
+        if r in self.order:
+            self.order.remove(r)
+        self.order.insert(0, r)
+        total = sum(self.graphs[i].device_bytes() for i in self.order)
+        while total > self.budget and len(self.order) > 1:
+            ev = self.order.pop()
+            total -= self.graphs[ev].device_bytes()
+            self.graphs[ev].evict_device()
+        return g
 
 
 def cache_fingerprint(labels_sorted: np.ndarray,

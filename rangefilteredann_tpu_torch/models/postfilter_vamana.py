@@ -58,15 +58,13 @@ SPECULATE = True
 RERANK_SLACK = 8
 
 
-def _run_beam_batch(ps, graph: SlabGraph, queries_padded: np.ndarray,
-                    starts: np.ndarray, beam: int, limit: int, metric: str,
-                    degree_limit: int = 0):
-    """One batched search at a fixed beam. Returns (BeamResult, the queries
-    on the device)."""
-    dev = ps.device
-    qs = torch.from_numpy(np.ascontiguousarray(queries_padded, dtype=np.float32)).to(dev)
-    st = torch.from_numpy(np.ascontiguousarray(starts, dtype=np.int32)).to(dev)
-    act = torch.ones(len(starts), dtype=torch.bool, device=dev)
+def run_beam_batch(ps, graph: SlabGraph, qs: torch.Tensor, st: torch.Tensor,
+                   beam: int, limit: int, metric: str,
+                   degree_limit: int = 0) -> BeamResult:
+    """One batched query-mode search at a fixed beam, of the queries `qs`
+    [Q, d_pad] from the slab ids `st` [Q], both on the store's device: the
+    beam kernel where it covers the search, batched_beam_search otherwise."""
+    act = torch.ones(st.shape[0], dtype=torch.bool, device=qs.device)
     beam = int(beam)
     if kernel_covers(graph, beam, degree_limit):
         d0 = start_distances(ps, graph, qs, st, metric)
@@ -74,8 +72,8 @@ def _run_beam_batch(ps, graph: SlabGraph, queries_padded: np.ndarray,
         f_ids, f_d, n_vis, cmps = beam_search_inline(
             graph.nbr_vecs, graph.nbrs_dev, graph.nbr_norms, graph.nbr_scale,
             qs[:, :w], st, d0, act, beam=beam, limit=int(limit), metric=metric)
-        return BeamResult(f_ids, f_d, n_vis, cmps, f_ids[:, :0], f_d[:, :0]), qs
-    res = batched_beam_search(
+        return BeamResult(f_ids, f_d, n_vis, cmps, f_ids[:, :0], f_d[:, :0])
+    return batched_beam_search(
         ps.data, ps.norms_sq, graph.nbrs_dev, graph.slab_to_global_dev, qs, st,
         beam=beam, k=0, cut=1.35, limit=int(limit), metric=metric,
         active_in=act, expand=default_expand(beam),
@@ -84,7 +82,6 @@ def _run_beam_batch(ps, graph: SlabGraph, queries_padded: np.ndarray,
         identity_map=graph.identity_s2g, nbr_vecs=graph.nbr_vecs,
         nbr_norms=graph.nbr_norms, nbr_scale=graph.nbr_scale,
     )
-    return res, qs
 
 
 def _dl(qp, graph) -> int:
@@ -136,9 +133,11 @@ def doubling_postfilter(
     def _search_and_filter(sel, b, collect_stats=True):
         """Enqueue one search + window filter; returns device tensors
         (counts, gids, dists) and the BeamResult, fetching nothing."""
-        res, qs_dev = _run_beam_batch(
-            ps, graph, queries_padded[rows_of(sel)], starts[sel], b, qp.limit,
-            metric, degree_limit=_dl(qp, graph))
+        qs_dev = torch.from_numpy(np.ascontiguousarray(
+            queries_padded[rows_of(sel)], dtype=np.float32)).to(dev)
+        st = torch.from_numpy(np.ascontiguousarray(starts[sel], dtype=np.int32)).to(dev)
+        res = run_beam_batch(ps, graph, qs_dev, st, b, qp.limit, metric,
+                             degree_limit=_dl(qp, graph))
         if collect_stats:
             _collect(sel, np.arange(len(sel)), res)
         wl = torch.from_numpy(win_lo[sel].astype(np.int32)).to(dev)

@@ -105,6 +105,34 @@ class SlabGraph:
         self.nbrs_dev = torch.from_numpy(np.ascontiguousarray(
             self.nbrs_host, dtype=np.int32)).to(self.slab_to_global_dev.device)
 
+    # Device residency for trees whose rows together exceed the card's
+    # memory: a row drops its device copies and uploads them again from the
+    # host mirrors when a batch routes to it (models/base.RowResidency).
+    def ensure_device(self, device) -> "SlabGraph":
+        if self.nbrs_dev is None:
+            self.nbrs_dev = torch.from_numpy(np.ascontiguousarray(
+                self.nbrs_host, dtype=np.int32)).to(device)
+        if self.slab_to_global_dev is None:
+            self.slab_to_global_dev = torch.from_numpy(
+                self.slab_to_global_host.astype(np.int32)).to(device)
+        return self
+
+    def evict_device(self) -> None:
+        """Drop the device copies (the host mirrors stay), inline blocks too."""
+        self.nbrs_dev = None
+        self.slab_to_global_dev = None
+        self.nbr_vecs = None
+        self.nbr_norms = None
+        self.nbr_scale = None
+
+    def device_bytes(self) -> int:
+        """Device bytes of the adjacency, the slab map and inline blocks."""
+        b = self.m * self.R * 4 + self.m * 4
+        if self.nbr_vecs is not None:
+            b += self.nbr_vecs.numel() * self.nbr_vecs.element_size()
+            b += self.nbr_norms.numel() * 4
+        return b
+
     @staticmethod
     def inline_width(ps: PointSet) -> int:
         """Columns of an inline block: the real dims rounded up to 128."""
