@@ -47,22 +47,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      query-mode searches that missed the beam kernel, the rows given
      inline blocks and a host breakdown (planning beside the phases), a
      profile of fenwick, and one of its beam-kernel launches against the
-     plain version; then the prefilter-leaf tree over the prefilter path's
-     1M store, fenwick on its 2^-2 batch (recall@10 1.0, the scan kernel);
-  7. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
+     plain version; then the super tree (SuperOptimizedPostfilterTree) at
+     bench.py's super configuration over the same data (cutoff 1000, split
+     2.0, shift 0.5, the same build; row 0 loaded from the graph's cache,
+     rows 1-8 built on the card) on the 2^-2 batch at beam 40 and beam 80,
+     final_beam_multiply 2, each with the launch counts reset just before
+     one call and read just after, recall@10 >= 0.99, best-of-2 wall, the
+     routed rows, a host breakdown, and its largest beam-kernel launch
+     against the plain version; then the prefilter-leaf tree over the
+     prefilter path's 1M store, fenwick on its 2^-2 batch (recall@10 1.0,
+     the scan kernel);
+  7. the file-based surface over the graph path's data (run after the
+     super tree, before the prefilter-leaf tree, in the run's temporary
+     directory): vectors and graph
+     written as reference-format files (utils/io), VamanaIndex loaded from
+     them on the card and searched unfiltered at beam 10, 20, 40 and 80
+     (recall@10 against a float64 ground-truth file, >= 0.99 at beam 80),
+     the command line (cli.main) over the same files, and
+     build_vamana_index on a 20,000-point prefix (recall@10 >= 0.95 at
+     beam 80); these searches prune by the cut and run batched_beam_search,
+     not the beam kernel;
+  8. the scan-variant harness (tools/exp_scan2, exp_scan3, exp_scan3b) at
      its own size: 200,000 x 128 fp32, 2,048 queries, windows of 1/4, k=10,
      the tools' generator with seed 42, through each tool's main() with
      the launch counts reset just before and read just after, then the
      --dups inputs; each variant against a float64 oracle, its plain
      version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
-  8. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
-     launches on its main path, its worst deviation, its times and bound;
-  9. the card line again, then {"ok": true, "device": {...}} as the last line.
+  9. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+     launches on its main path (the beam kernel's: the graph path's and the
+     super tree's), its worst deviation, its times and bound;
+  10. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import itertools
 import json
@@ -1097,7 +1117,7 @@ def run_graph_path(torch, args, worst, cache):
     t0 = time.time()
     fname = base.whole_dataset_cache(cache, tree_build_params(P, cache),
                                      float(labels.min()), float(labels.max()), len(points))
-    np.savez_compressed(fname, nbrs=g.nbrs_host, fingerprint=idx._fp)
+    base.save_cached_nbrs(fname, g.nbrs_host, idx._fp)
     deg = (g.nbrs_host >= 0).sum(axis=1)
     log(f"graph index: PostfilterVamanaIndex on {idx.device} (R=48, L=100, alpha=1.2) "
         f"built in {built:.1f} s; degree mean {deg.mean():.2f} max {deg.max()}; "
@@ -1238,6 +1258,47 @@ TREE_METHODS = (("fenwick", "fenwick", None),
                 ("smart_combined", "optimized_postfilter", 1.5))
 
 
+@contextlib.contextmanager
+def recorded_rows(torch, row_of):
+    """While open, every row build of a tree (models/vamana.load_or_build_row)
+    is timed into builds[row_of(bucket offsets)] and every graph cache it
+    loads is recorded in loads; yields (builds, loads)."""
+    from rangefilteredann_tpu_torch.models import vamana
+
+    builds, loads = {}, []
+    real_build, real_load = vamana.build_vamana_graph, vamana.load_cached_nbrs
+
+    def timed_build(ps, s2g, off, bp, seed):
+        t0 = time.time()
+        g = real_build(ps, s2g, off, bp, seed=seed)
+        torch.cuda.synchronize()
+        builds[row_of(off)] = time.time() - t0
+        return g
+
+    def recorded_load(fname, fp):
+        loads.append(fname)
+        return real_load(fname, fp)
+
+    vamana.build_vamana_graph, vamana.load_cached_nbrs = timed_build, recorded_load
+    try:
+        yield builds, loads
+    finally:
+        vamana.build_vamana_graph, vamana.load_cached_nbrs = real_build, real_load
+
+
+def span_timer(torch, spans, fn, name):
+    """fn wrapped to add its host ms, between two synchronises, to
+    spans[name]."""
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    return wrapper
+
+
 def tree_breakdown(torch, tree, queries, filters, qparams, method, nq):
     """Host clock around the stages of one real RangeFilterTreeIndex.
     batch_search call: marks, each after a synchronise, at the entry and
@@ -1248,17 +1309,7 @@ def tree_breakdown(torch, tree, queries, filters, qparams, method, nq):
     from rangefilteredann_tpu_torch.models import range_filter_tree as rft
 
     spans = {}
-
-    def marked(fn, name):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapper
-
+    marked = functools.partial(span_timer, torch, spans)
     stages = {"_plan_batch_native": "plan", "_plan_batch_python": "plan",
               "_run_single_shot": "single-shot", "_run_doubling": "doubling",
               "_merge": "merge"}
@@ -1313,28 +1364,11 @@ def run_tree_path(torch, args, cache, data, flat_nbrs):
     nq = len(queries)
     bp = tree_build_params(P, cache)
     offsets = rft.build_offset_rows(len(points), TREE_CUTOFF, TREE_SPLIT)
-    row_of = {len(o) - 1: r for r, o in enumerate(offsets)}
-    builds, loads = {}, []
-    real_build, real_load = rft.build_vamana_graph, rft.load_cached_nbrs
-
-    def timed_build(ps, s2g, off, bp_, seed):
-        t0 = time.time()
-        g = real_build(ps, s2g, off, bp_, seed=seed)
-        torch.cuda.synchronize()
-        builds[row_of[len(off) - 1]] = time.time() - t0
-        return g
-
-    def recorded_load(fname, fp):
-        loads.append(fname)
-        return real_load(fname, fp)
-
-    rft.build_vamana_graph, rft.load_cached_nbrs = timed_build, recorded_load
+    row_of = {len(o) - 1: r for r, o in enumerate(offsets)}  # buckets -> row
     t0 = time.time()
-    try:
+    with recorded_rows(torch, lambda off: row_of[len(off) - 1]) as (builds, loads):
         tree = P.RangeFilterTreeIndex(points, labels, cutoff=TREE_CUTOFF,
                                       split_factor=TREE_SPLIT, build_params=bp)
-    finally:
-        rft.build_vamana_graph, rft.load_cached_nbrs = real_build, real_load
     torch.cuda.synchronize()
     total = time.time() - t0
     canon = base.whole_dataset_cache(cache, bp, float(labels.min()), float(labels.max()),
@@ -1512,6 +1546,315 @@ def run_prefilter_tree_path(torch, args, data):
             f"{excused}; kernel {kernel_ms:.3f} ms, plain {plain_s:.1f} s")
         log(f"scan grid prefilter-leaf tree: {grid_note(scan_grid(torch, a, kw))}")
     return worst
+
+
+SUPER_SPLIT, SUPER_SHIFT = 2.0, 0.5  # bench.py:341-345
+SUPER_BEAMS = (40, 80)  # bench.py:396-412, each at final_beam_multiply 2
+
+
+def super_breakdown(torch, tree, queries, filters, qparams, nq):
+    """Host clock around the stages of one SuperOptimizedPostfilterTree.
+    batch_search call: routing, plan_row_inline, each routed row's
+    doubling_postfilter call (named by its row, its queries and whether the
+    row's searches take B2 or the plain search) and finalize_output, each
+    between two synchronises; "other" holds the rest. Returns (total ms,
+    {stage: ms})."""
+    from rangefilteredann_tpu_torch.models import super_postfilter_tree as spt
+
+    spans = {}
+    marked = functools.partial(span_timer, torch, spans)
+    tree._route_batch = marked(tree._route_batch, "routing")
+    real = spt.plan_row_inline, spt.doubling_postfilter, spt.finalize_output
+
+    def per_row(ps, g, *a, **kw):
+        r = next(i for i, x in enumerate(tree._graphs) if x is g)
+        route = "B2" if g.nbr_vecs is not None else "plain"
+        name = f"doubling row {r} ({len(kw['q_rows'])} queries, {route})"
+        return marked(real[1], name)(ps, g, *a, **kw)
+
+    spt.plan_row_inline = marked(real[0], "inline blocks")
+    spt.doubling_postfilter = per_row
+    spt.finalize_output = marked(real[2], "finalize_output")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree.batch_search(queries, filters, nq, qparams)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        spt.plan_row_inline, spt.doubling_postfilter, spt.finalize_output = real
+        del tree._route_batch
+    spans["other"] = total - sum(spans.values())
+    return total, spans
+
+
+def run_super_tree_path(torch, args, cache, data, flat_nbrs):
+    """The super tree at bench.py's super configuration over the graph
+    path's data (cutoff 1000, split 2.0, shift 0.5, R=48, L=100, alpha=1.2),
+    row 0 loaded from the graph's cache, rows 1-8 built on the card; then
+    the 2^-2 batch at beam 40 and 80, x2, each with every kernel's launch
+    count reset just before one call and read just after. Returns the beam
+    kernel's launches over those calls."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch import native
+    from rangefilteredann_tpu_torch.models import base
+    from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+    from rangefilteredann_tpu_torch.models import super_postfilter_tree as spt
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    if not native.available():  # the phase measures the native router
+        raise AssertionError("the native router did not build (g++ missing?)")
+    points, labels, queries, batches = data
+    filters = batches["frac2^-2"]
+    nq, n = len(queries), len(points)
+    bp = tree_build_params(P, cache)
+    layout = spt.super_row_layout(n, TREE_CUTOFF, SUPER_SPLIT, SUPER_SHIFT)
+    slabs = [int(spt.SuperOptimizedPostfilterTree._row_slab(n, *row)[0][-1])
+             for row in layout]
+    row_of = {m: r for r, m in enumerate(slabs)}  # slab points -> row
+    t0 = time.time()
+    with recorded_rows(torch, lambda off: row_of[int(off[-1])]) as (builds, loads):
+        tree = P.SuperOptimizedPostfilterTree(
+            points, labels, cutoff=TREE_CUTOFF, split_factor=SUPER_SPLIT,
+            shift_factor=SUPER_SHIFT, build_params=bp)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    canon = base.whole_dataset_cache(cache, bp, float(labels.min()), float(labels.max()), n)
+    if loads != [canon] or sorted(builds) != list(range(1, len(layout))) or \
+            not np.array_equal(tree._graphs[0].nbrs_host, flat_nbrs):
+        raise AssertionError(f"super row 0 did not load the graph's cache: loads {loads}, "
+                             f"rows built {sorted(builds)}")
+    log(f"super tree: SuperOptimizedPostfilterTree on {tree.device} ({len(layout)} rows, "
+        f"cutoff {TREE_CUTOFF}, split {SUPER_SPLIT}, shift {SUPER_SHIFT}, R=48, L=100, "
+        f"alpha=1.2, native router {native.available()}) in {total:.1f} s with the cache "
+        f"writes; row 0 loaded from the graph's cache {os.path.basename(canon)}; rows built: "
+        + ", ".join(f"row {r} ({layout[r][2]} buckets of {layout[r][0]}, slab {slabs[r]}) "
+                    f"{builds[r]:.1f} s" for r in sorted(builds))
+        + f"; {sum(builds.values()):.1f} s of builds for {sum(slabs[1:])} slab points")
+    log(f"super rows: adjacency and slab maps on the card "
+        f"{sum(g.device_bytes() for g in tree._graphs)} B; int8 inline blocks of a row "
+        + ", ".join(f"{r}: {g.inline_bytes(tree._ps, torch.int8)}"
+                    for r, g in enumerate(tree._graphs))
+        + f" B; budget {base.TREE_INLINE_BUDGET} B")
+
+    oracle = Oracle(points, labels)
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    captured = {}  # the largest beam kernel launch (a, kw, out)
+    plain_calls, routed = [0, 0], {}
+    real_inline, real_plain = pv.beam_search_inline, pv.batched_beam_search
+    real_route = tree._route_batch
+
+    def recording_inline(*a, **kw):
+        out = real_inline(*a, **kw)
+        if "launch" not in captured or a[4].shape[0] > captured["launch"][0][4].shape[0]:
+            captured["launch"] = (a, kw, out)
+        return out
+
+    def counting_plain(*a, **kw):  # query-mode searches that missed the kernel
+        plain_calls[0] += 1
+        plain_calls[1] += a[4].shape[0]
+        return real_plain(*a, **kw)
+
+    def recording_route(*a, **kw):
+        rows, buckets = real_route(*a, **kw)
+        routed["rows"] = rows
+        return rows, buckets
+
+    total_launches = 0
+    for beam_w in SUPER_BEAMS:
+        qparams = P.build_query_params(K, beam_w, final_beam_multiply=TREE_FM)
+        plain_calls[:] = [0, 0]
+        pv.beam_search_inline, pv.batched_beam_search = recording_inline, counting_plain
+        tree._route_batch = recording_route
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        t0 = time.perf_counter()
+        try:
+            ids, dists = tree.batch_search(queries, filters, nq, qparams)
+        finally:
+            launches, scan_launches = beam.BEAM_LAUNCHES, scan.SCAN_LAUNCHES  # just after
+            pv.beam_search_inline, pv.batched_beam_search = real_inline, real_plain
+            del tree._route_batch
+        first = time.perf_counter() - t0
+        total_launches += launches
+        rec, overlap, notes = check_results(oracle, queries, filters, ids, dists, K, sample,
+                                            hi_side="right", pad_id=0)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tree.batch_search(queries, filters, nq, qparams)
+            walls.append(time.perf_counter() - t0)
+        best = min(walls)
+        spent, spans = super_breakdown(torch, tree, queries, filters, qparams, nq)
+        urows, ucounts = np.unique(routed["rows"], return_counts=True)
+        log(f"super tree frac2^-2 beam {beam_w} x{TREE_FM}: recall@{K} {rec} on "
+            f"{len(sample)} queries (id-set overlap {overlap}); wall best of 2 "
+            f"{best * 1e3:.3f} ms, QPS {nq / best:.1f}, runs "
+            f"{[round(w * 1e3, 3) for w in walls]} (first call {first * 1e3:.3f} ms); "
+            f"beam_search launches {launches}, scan_topk launches {scan_launches}; "
+            f"query-mode batched_beam_search calls {plain_calls[0]} over {plain_calls[1]} "
+            f"searches; routed rows (row: queries) "
+            f"{dict(zip(urows.tolist(), ucounts.tolist()))}; int8 inline rows "
+            f"{sorted(tree._inline_attached)}")
+        log(f"super tree beam {beam_w} host breakdown: total {spent:.3f} ms; " + "; ".join(
+            f"{k} {ms:.3f} ms" for k, ms in spans.items()))
+        for note in notes[:3]:
+            log(f"  near-tie at the k-th place, {note}")
+        if rec < 0.99 or launches < 1:
+            raise AssertionError(f"super tree beam {beam_w}: recall@{K} {rec} < 0.99 or no "
+                                 f"beam_search launch ({launches})")
+
+    # the largest beam kernel launch against its plain version (int8 blocks
+    # with a scale: held at recall level, as in the beam cases)
+    a, kw, out = captured["launch"]
+    plain = beam.beam_search_plain(*a, **kw)
+    torch.cuda.synchronize()
+    gi, pi = out[0].cpu().numpy(), plain[0].cpu().numpy()
+    mism = float((gi != pi).mean())
+    same_vis = float((out[2] == plain[2]).double().mean())
+    kernel_ms = cuda_time_ms(torch, lambda: beam.beam_search_inline(*a, **kw), 3)
+    plain_ms = cuda_time_ms(torch, lambda: beam.beam_search_plain(*a, **kw), 1)
+    log(f"super tree beam kernel launch [{gi.shape[0]} queries, beam {kw['beam']}, "
+        f"{a[0].dtype} blocks{' with a scale' if a[3] is not None else ''}]: {mism:.4%} "
+        f"of frontier ids differ from the plain version, n_vis equal on {same_vis:.4f} "
+        f"of queries; kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events)")
+    if mism >= 0.02:
+        raise AssertionError(f"super tree beam kernel launch: {mism:.4%} ids differ")
+    return total_launches
+
+
+def exact_knn(torch, points, queries, k, block=1024):
+    """(ids [Q, k] int64, dists [Q, k] float64): the k nearest points of each
+    query over the whole store, float64 products on the card."""
+    x = torch.from_numpy(points).cuda().double()
+    xn = (x * x).sum(dim=1)
+    ids, dists = [], []
+    for j in range(0, len(queries), block):
+        q = torch.from_numpy(queries[j:j + block]).cuda().double()
+        d = xn[None, :] - 2.0 * (q @ x.T) + (q * q).sum(dim=1)[:, None]
+        dv, di = torch.topk(d, k, dim=1, largest=False, sorted=True)
+        ids.append(di.cpu().numpy())
+        dists.append(dv.cpu().numpy())
+    return np.concatenate(ids), np.concatenate(dists)
+
+
+VAMANA_BEAMS = (10, 20, 40, 80)
+PREFIX_N = 20_000  # points of the build_vamana_index run
+
+
+def run_vamana_index_path(torch, args, tmp, data, flat_nbrs):
+    """The file-based surface over the graph path's data: its vectors, in
+    the label-sorted order its graph indexes, and the graph written as
+    reference-format files, VamanaIndex loaded from
+    them on the card and searched unfiltered at each beam of VAMANA_BEAMS
+    (recall against a float64 ground-truth file and the sampled oracle),
+    the command line over the same files, and build_vamana_index on a
+    PREFIX_N-point prefix."""
+    import io
+
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch import cli
+    from rangefilteredann_tpu_torch.models import vamana_index as vi
+    from rangefilteredann_tpu_torch.ops import beam, scan
+    from rangefilteredann_tpu_torch.utils import io as bin_io
+
+    points, labels, queries, _ = data
+    points = points[np.argsort(labels, kind="stable")]  # the order the graph indexes
+    labels = np.sort(labels)
+    nq = len(queries)
+    path = {k: os.path.join(tmp, f"{k}.bin")
+            for k in ("base", "graph", "queries", "gt", "prefix", "prefix_graph")}
+    t0 = time.time()
+    bin_io.write_vector_file(path["base"], points)
+    bin_io.write_graph_file(path["graph"], flat_nbrs)
+    bin_io.write_vector_file(path["queries"], queries)
+    gt_ids, gt_d = exact_knn(torch, points, queries, K)
+    bin_io.write_groundtruth_file(path["gt"], gt_ids, gt_d)
+    log(f"vamana files: base {os.path.getsize(path['base'])} B, graph "
+        f"{os.path.getsize(path['graph'])} B, queries, float64 ground truth at k={K}; "
+        f"in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    idx = P.VamanaIndex(path["graph"], path["base"], num_points=len(points), dimensions=D)
+    torch.cuda.synchronize()
+    if not np.array_equal(idx._graph.nbrs_host, flat_nbrs):
+        raise AssertionError("the graph file did not round-trip")
+    log(f"VamanaIndex on {idx.device} loaded in {time.time() - t0:.1f} s; inline blocks "
+        f"{idx._graph.inline_dtype}")
+
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    plain_calls = [0]
+    real_plain = vi.batched_beam_search
+
+    def counting_plain(*a, **kw):
+        plain_calls[0] += 1
+        return real_plain(*a, **kw)
+
+    recall_at = {}
+    for beam_w in VAMANA_BEAMS:
+        plain_calls[0] = 0
+        vi.batched_beam_search = counting_plain
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        try:
+            ids, dists = idx.batch_search(queries, nq, K, beam_w)
+        finally:
+            launches, scan_launches = beam.BEAM_LAUNCHES, scan.SCAN_LAUNCHES  # just after
+            vi.batched_beam_search = real_plain
+        recall_at[beam_w] = idx.check_recall(path["gt"], ids, K)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            idx.batch_search(queries, nq, K, beam_w)
+            walls.append(time.perf_counter() - t0)
+        best = min(walls)
+        log(f"VamanaIndex unfiltered beam {beam_w}: recall@{K} {recall_at[beam_w]} "
+            f"(check_recall against the ground-truth file); wall best of 2 "
+            f"{best * 1e3:.3f} ms, QPS {nq / best:.1f}, runs "
+            f"{[round(w * 1e3, 3) for w in walls]}; batched_beam_search calls "
+            f"{plain_calls[0]}, beam_search launches {launches}, scan_topk launches "
+            f"{scan_launches}")
+    # the last beam's results: shapes, padding and every distance against the
+    # float64 oracle over the whole store (a window holding every label)
+    everything = np.tile([[-1.0, 2.0]], (nq, 1))
+    rec, overlap, _ = check_results(Oracle(points, labels), queries, everything, ids,
+                                    dists, K, sample, pad_id=0)
+    log(f"VamanaIndex beam {beam_w} on the sampled oracle: recall@{K} {rec} (id-set "
+        f"overlap {overlap})")
+    if recall_at[beam_w] < 0.99:
+        raise AssertionError(f"VamanaIndex recall@{K} {recall_at[beam_w]} < 0.99 at beam "
+                             f"{beam_w}")
+    del idx
+    torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli.main(["-base_path", path["base"], "-query_path", path["queries"],
+                  "-gt_path", path["gt"], "-graph_path", path["graph"], "-k", str(K),
+                  "-beams", ",".join(map(str, VAMANA_BEAMS))])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  cli: {line}")
+    rows = [ln.split() for ln in lines if ln.split() and ln.split()[0].isdigit()]
+    if [int(r[0]) for r in rows] != list(VAMANA_BEAMS) or float(rows[-1][1]) < 0.99:
+        raise AssertionError(f"the command line printed {lines}")
+    log(f"cli over the files in {time.time() - t0:.1f} s")
+
+    m = min(PREFIX_N, len(points))
+    bin_io.write_vector_file(path["prefix"], points[:m])
+    t0 = time.time()
+    P.build_vamana_index("Euclidian", path["prefix"], path["prefix_graph"], 48, 100, 1.2)
+    torch.cuda.synchronize()
+    built = time.time() - t0
+    pidx = P.VamanaIndex(path["prefix_graph"], path["prefix"])
+    p_ids, p_d = exact_knn(torch, points[:m], queries, K)
+    bin_io.write_groundtruth_file(path["gt"], p_ids, p_d)
+    ids, _ = pidx.batch_search(queries, nq, K, VAMANA_BEAMS[-1])
+    rec = pidx.check_recall(path["gt"], ids, K)
+    log(f"build_vamana_index over a {m}-point prefix (R=48, L=100, alpha=1.2) on the card "
+        f"in {built:.1f} s; VamanaIndex recall@{K} at beam {VAMANA_BEAMS[-1]}: {rec}")
+    if rec < 0.95:
+        raise AssertionError(f"prefix build recall@{K} {rec} < 0.95")
 
 
 def run_variants_on_batch(torch, inputs, b1_ms, errs):
@@ -1719,18 +2062,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         # 6. the trees
         run_tree_path(torch, args, cache, graph_data, flat_nbrs)
+        torch.cuda.empty_cache()
+        beam_entry["launches"] += run_super_tree_path(torch, args, cache, graph_data,
+                                                      flat_nbrs)
+        torch.cuda.empty_cache()
+        # 7. the file-based surface
+        run_vamana_index_path(torch, args, cache, graph_data, flat_nbrs)
     del graph_data, flat_nbrs
     torch.cuda.empty_cache()
     tree_err = run_prefilter_tree_path(torch, args, prefilter_data)
     scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], tree_err)
     del prefilter_data
     torch.cuda.empty_cache()
-    # 7. the scan-variant harness
+    # 8. the scan-variant harness
     entries += run_variant_path(torch, args, variant_errs)
 
-    # 8. inventory
+    # 9. inventory
     print(json.dumps({"kernels": entries}), flush=True)
-    # 9. the card, then the result
+    # 10. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

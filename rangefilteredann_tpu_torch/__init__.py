@@ -7,9 +7,15 @@ Indices place their store on the card unless the caller passes
 range-masked scan runs as a hand-written CUDA kernel (csrc/scan_topk.cu),
 the graph postfilter (`PostfilterVamanaIndex`: Vamana build and doubling beam
 search), whose query-mode beam searches run as a hand-written CUDA kernel
-(csrc/beam_search.cu), and the B-Window-Search-Tree (`RangeFilterTreeIndex`,
-Vamana or prefilter leaves, with the native host planners of native.py),
-which runs on those two kernels.
+(csrc/beam_search.cu), the B-Window-Search-Tree (`RangeFilterTreeIndex`,
+Vamana or prefilter leaves, with the native host planners of native.py) and
+the super tree (`SuperOptimizedPostfilterTree`, overlapping buckets, native
+routing), which run on those two kernels, and the API surface: the
+file-based `VamanaIndex` and `build_vamana_index`, `utils/io.py` (the
+reference's vector, graph and ground-truth files), `filters.py`, the
+factories of `wrapper.py`, the `window_ann` class names
+(`rangefilteredann_tpu_torch.window_ann`) and the command line
+(`python -m rangefilteredann_tpu_torch.cli`).
 """
 
 from .params import (  # noqa: F401
@@ -25,11 +31,19 @@ from .models import (  # noqa: F401
     PostfilterVamanaIndex,
     PrefilterIndex,
     RangeFilterTreeIndex,
+    SuperOptimizedPostfilterTree,
+    VamanaIndex,
+    build_vamana_index,
 )
+from .filters import FilteredDataset, QueryFilter, csr_filters  # noqa: F401
+from .utils.stats import QueryStats, graph_stats  # noqa: F401
 from .wrapper import (  # noqa: F401
+    build_vamana_index_fn,
     postfilter_vamana_constructor,
     prefilter_index_constructor,
     range_filter_tree_constructor,
+    super_optimized_postfilter_tree_constructor,
+    vamana_index_constructor,
     vamana_range_filter_tree_constructor,
 )
 

@@ -299,6 +299,14 @@ def load_cached_nbrs(fname: str, fingerprint: np.ndarray):
     return nbrs
 
 
+def save_cached_nbrs(fname: str, nbrs: np.ndarray, fingerprint: np.ndarray) -> None:
+    """Write a graph cache: the adjacency and the digest of its data. The
+    archive is stored, not deflated: a 400,000 x 48 row takes ~11 s to
+    deflate (to 57 MB) and ~0.15 s to store (77 MB). np.load reads either
+    form, so both packages load the caches of both."""
+    np.savez(fname, nbrs=nbrs, fingerprint=fingerprint)
+
+
 def whole_dataset_cache(cache_path, bp, label_lo, label_hi, n):
     """The cache file of the single Vamana graph over the whole label-sorted
     dataset, the JAX package's (and the reference's, ref:

@@ -39,6 +39,7 @@ from .base import (
     cache_fingerprint,
     finalize_output,
     maybe_attach_inline,
+    save_cached_nbrs,
     whole_dataset_cache,
 )
 from .vamana import SlabGraph, build_vamana_graph
@@ -333,7 +334,7 @@ class PostfilterVamanaIndex:
             np.array([0, n], dtype=np.int64), bp, seed=seed,
             checkpoint_path=fname + ".ckpt.npz" if fname else None)
         if fname:
-            np.savez_compressed(fname, nbrs=g.nbrs_host, fingerprint=self._fp)
+            save_cached_nbrs(fname, g.nbrs_host, self._fp)
         return g
 
     def batch_search(

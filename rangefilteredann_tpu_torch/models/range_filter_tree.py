@@ -52,12 +52,11 @@ from .base import (
     batched_range_bruteforce,
     cache_fingerprint,
     finalize_output,
-    load_cached_nbrs,
     plan_row_inline,
     whole_dataset_cache,
 )
 from .postfilter_vamana import RERANK_SLACK, doubling_postfilter, run_beam_batch
-from .vamana import SlabGraph, build_vamana_graph
+from .vamana import SlabGraph, load_or_build_row
 
 
 def build_offset_rows(n: int, cutoff: int, split_factor: int) -> List[np.ndarray]:
@@ -153,35 +152,12 @@ class RangeFilterTreeIndex:
             bp.cache_path, bp, lo, hi, self._ps.n, self._split, self._cutoff, r)
 
     def _load_or_build_row(self, r, row_off, s2g, seed) -> SlabGraph:
-        fname = self._row_cache_file(r)
-        load_from = fname
-        canon = None
-        if r == 0 and self._bp.cache_path:
-            # row 0 is one bucket over the whole dataset: the same build as
-            # the flat PostfilterVamanaIndex graph, whose cache it shares
-            canon = whole_dataset_cache(
-                self._bp.cache_path, self._bp,
-                float(self._labels_sorted[0]), float(self._labels_sorted[-1]),
-                self._ps.n)
-            if fname and not os.path.exists(fname) and os.path.exists(canon):
-                load_from = canon
-        if load_from and os.path.exists(load_from):
-            nbrs = load_cached_nbrs(load_from, self._fp)
-            if nbrs is not None:
-                g = SlabGraph.from_nbrs(nbrs, self._ps.device)
-                g.bucket_slab_offsets = row_off  # tree rows partition the sorted ids
-                return g
-        if self._require_cache:
-            raise FileNotFoundError(
-                f"require_cache: row {r} cache absent or fingerprint-"
-                f"mismatched ({fname})")
-        g = build_vamana_graph(self._ps, s2g, row_off, self._bp, seed=seed + r)
-        if fname:
-            os.makedirs(os.path.dirname(fname), exist_ok=True)
-            np.savez_compressed(fname, nbrs=g.nbrs_host, fingerprint=self._fp)
-            if canon and not os.path.exists(canon):
-                np.savez_compressed(canon, nbrs=g.nbrs_host, fingerprint=self._fp)
-        return g
+        lo, hi = float(self._labels_sorted[0]), float(self._labels_sorted[-1])
+        canon = whole_dataset_cache(self._bp.cache_path, self._bp, lo, hi,
+                                    self._ps.n) if r == 0 else None
+        return load_or_build_row(self._ps, self._bp, s2g, row_off, self._fp,
+                                 self._row_cache_file(r), canon, seed=seed + r,
+                                 require_cache=self._require_cache)
 
     # ---------------------------------------------------------------- routing
     def _find_bucket_containing(self, row: int, index: int) -> int:

@@ -12,8 +12,12 @@ The adjacency and degrees live on the store's device and are updated in
 place; the host enqueues the steps. The JAX package's padding of every step
 to one compiled shape is not needed in PyTorch: only its cap on the batch
 size (`mp`, which splits an oversized step into sub-batches) is kept, so the
-same inputs take the same steps. Options that exist for the trees' shared
-compiled shapes (`pad_rows`, `insert_pad`) are not ported yet.
+same inputs take the same steps. Its `pad_rows` and `insert_pad` options,
+which let the super tree's rows share compiled shapes, are not ported:
+PyTorch has no compiled shapes to share. Pad rows are isolated and
+unreachable, and the JAX package caches the real rows only, so a super row
+it saved loads here unpadded and searches alike
+(tests/test_torch_super_tree.py holds ids and counters equal).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..ops.robust_prune import robust_prune
 from ..ops.topk import EMPTY_ID
 from ..params import BuildParams
 from ..utils.data import PointSet, resolve_device
-from .base import load_cached_nbrs, next_pow2
+from .base import load_cached_nbrs, next_pow2, save_cached_nbrs
 
 PRUNE_CHUNK = 2048  # rows per robust_prune call (bounds the [rows, C, d] gather)
 _I32_MAX = int(np.iinfo(np.int32).max)
@@ -60,24 +64,32 @@ class SlabGraph:
     # is an int8 quantization of a float store (None = vectors are exact)
 
     @classmethod
-    def from_nbrs(cls, nbrs, device=None) -> "SlabGraph":
-        """A flat graph (one bucket, identity slab map) over the adjacency
-        `nbrs` [m, R] (-1 padded), as a loaded graph is held; `device`
-        None means the card."""
+    def from_nbrs(cls, nbrs, device=None, slab_to_global=None,
+                  bucket_slab_offsets=None) -> "SlabGraph":
+        """The graph over the adjacency `nbrs` [m, R] (-1 padded), as a
+        loaded graph is held: flat (one bucket, identity slab map) unless a
+        slab's map [m] and bucket offsets are given; `device` None means
+        the card."""
         device = resolve_device(device)
         nbrs = np.array(nbrs, dtype=np.int32, order="C")  # a writable copy
         if nbrs.ndim != 2:
             raise ValueError(f"nbrs must be [m, R], got {nbrs.shape}")
         m = nbrs.shape[0]
-        s2g = np.arange(m, dtype=np.int64)
+        ident = np.arange(m, dtype=np.int64)
+        s2g = ident if slab_to_global is None else np.asarray(
+            slab_to_global, dtype=np.int64)
+        if s2g.shape != (m,):
+            raise ValueError(f"slab_to_global must be [{m}], got {s2g.shape}")
+        offsets = (np.array([0, m], dtype=np.int64) if bucket_slab_offsets is None
+                   else np.asarray(bucket_slab_offsets, dtype=np.int64))
         return cls(
             nbrs_dev=torch.from_numpy(nbrs).to(device),
             slab_to_global_dev=torch.from_numpy(s2g.astype(np.int32)).to(device),
             nbrs_host=nbrs,
             degrees=(nbrs >= 0).sum(axis=1).astype(np.int32),
-            bucket_slab_offsets=np.array([0, m], dtype=np.int64),
+            bucket_slab_offsets=offsets,
             slab_to_global_host=s2g,
-            identity_s2g=True,
+            identity_s2g=bool(np.array_equal(s2g, ident)),
         )
 
     @classmethod
@@ -454,6 +466,36 @@ def build_vamana_graph(
     # final pass: sort each adjacency row by distance (ref: index.h:131-134)
     g.nbrs_host = sort_adjacency_rows(ps, g)
     g.sync_to_device()
+    return g
+
+
+def load_or_build_row(ps: PointSet, bp: BuildParams, slab_to_global: np.ndarray,
+                      bucket_slab_offsets: np.ndarray, fingerprint: np.ndarray,
+                      fname: Optional[str], canon: Optional[str] = None, *,
+                      seed: int, require_cache: bool) -> SlabGraph:
+    """A tree row's graph over the slab `slab_to_global` cut at
+    `bucket_slab_offsets`: loaded from its cache file `fname` or, when that
+    file is absent, from `canon` (a tree's row 0 is the flat graph's build
+    and shares its cache); else built and saved under both names, or, under
+    `require_cache`, FileNotFoundError. A cache written for other data (its
+    fingerprint differs) is rebuilt."""
+    load_from = fname
+    if canon and fname and not os.path.exists(fname) and os.path.exists(canon):
+        load_from = canon
+    if load_from and os.path.exists(load_from):
+        nbrs = load_cached_nbrs(load_from, fingerprint)
+        if nbrs is not None:
+            return SlabGraph.from_nbrs(nbrs, ps.device, slab_to_global,
+                                       bucket_slab_offsets)
+    if require_cache:
+        raise FileNotFoundError(
+            f"require_cache: row cache absent or fingerprint-mismatched ({fname})")
+    g = build_vamana_graph(ps, slab_to_global, bucket_slab_offsets, bp, seed=seed)
+    if fname:
+        os.makedirs(os.path.dirname(fname), exist_ok=True)
+        save_cached_nbrs(fname, g.nbrs_host, fingerprint)
+        if canon and not os.path.exists(canon):
+            save_cached_nbrs(canon, g.nbrs_host, fingerprint)
     return g
 
 

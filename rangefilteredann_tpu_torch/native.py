@@ -1,16 +1,17 @@
 """ctypes bridge to the native host runtime (native/winann_native.cpp).
 
-A copy of the parts of rangefilteredann_tpu/native.py that the tree calls
-(numpy and ctypes only), kept here so that the port never imports the JAX
-package. The native library owns the
-host side of a tree batch: covering-bucket planning, routing and the top-k
-merge of result parts (C++ under parlay in the reference,
-src/range_filter_tree.h). g++ compiles the unchanged
+A copy of rangefilteredann_tpu/native.py (numpy and ctypes only), kept here
+so that the port never imports the JAX package. The native library owns the
+host side of a tree batch: covering-bucket planning, the super tree's
+routing and the top-k merge of result parts (C++ under parlay in the
+reference, src/range_filter_tree.h), and the graph file I/O of utils/io.py
+(ref: utils/graph.h). g++ compiles the unchanged
 source at first use into `build/native/` at the repository root, under a
 name that hashes the source and the flags, so a stale build is never
 loaded. Where g++ or the source is missing, every entry point returns None
 and its caller takes the pure-Python path (the trees' `_plan_batch_python`
-and the numpy merge), which gives the same results.
+and `_route`, the numpy merge, the numpy graph I/O), which gives the same
+results.
 """
 
 from __future__ import annotations
@@ -82,10 +83,29 @@ def _signatures(lib):
         _i64p, _i64p, ctypes.c_int64,
         _i32p, _i32p, _i64p,
     ]
+    lib.route_super_batch.restype = None
+    lib.route_super_batch.argtypes = [
+        _i64p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p, ctypes.c_int64,
+        _i32p, _i64p,
+    ]
     lib.merge_topk_parts.restype = None
     lib.merge_topk_parts.argtypes = [
         _i64p, _f32p, _i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         _i64p, _i32p, _i64p, _f32p, ctypes.c_int64,
+    ]
+    lib.read_graph_padded.restype = ctypes.c_int64
+    lib.read_graph_padded.argtypes = [
+        ctypes.c_char_p, _i32p, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.write_graph_padded.restype = ctypes.c_int64
+    lib.write_graph_padded.argtypes = [
+        ctypes.c_char_p, _i32p, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.graph_file_sizes.restype = ctypes.c_int64
+    lib.graph_file_sizes.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
     ]
 
 
@@ -201,6 +221,29 @@ def plan_optimized_batch(
     return kind, row, idx
 
 
+def route_super_batch(
+    rows: List[Tuple[int, int, int]], n_points: int,
+    lo: np.ndarray, hi: np.ndarray,
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Batched super-tree routing over (bucket_size, bucket_shift, n_buckets)
+    rows: the smallest bucket holding each [lo, hi), row 0 where none does.
+    Returns (row [Q] int32, bucket [Q] int64)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    sizes = np.ascontiguousarray([r[0] for r in rows], dtype=np.int64)
+    shifts = np.ascontiguousarray([r[1] for r in rows], dtype=np.int64)
+    nbs = np.ascontiguousarray([r[2] for r in rows], dtype=np.int64)
+    nq = len(lo)
+    lo = np.ascontiguousarray(lo, dtype=np.int64)
+    hi = np.ascontiguousarray(hi, dtype=np.int64)
+    out_row = np.empty((nq,), dtype=np.int32)
+    out_idx = np.empty((nq,), dtype=np.int64)
+    lib.route_super_batch(
+        sizes, shifts, nbs, len(rows), n_points, lo, hi, nq, out_row, out_idx)
+    return out_row, out_idx
+
+
 def merge_topk_parts(
     part_ids: np.ndarray,  # [P, k] int64
     part_dists: np.ndarray,  # [P, k] f32
@@ -228,3 +271,33 @@ def merge_topk_parts(
         out_ids.reshape(-1), out_d.reshape(-1), empty_id,
     )
     return out_ids, out_d
+
+
+def read_graph_padded(path: str) -> Optional[np.ndarray]:
+    """A reference-format graph file as a padded [n, max_deg] int32
+    adjacency (-1 padding), or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = ctypes.c_uint32()
+    deg = ctypes.c_uint32()
+    if lib.graph_file_sizes(path.encode(), ctypes.byref(n), ctypes.byref(deg)) != 0:
+        raise FileNotFoundError(path)
+    nbrs = np.empty((n.value, deg.value), dtype=np.int32)
+    if lib.read_graph_padded(path.encode(), nbrs.reshape(-1), n.value, deg.value) != 0:
+        raise IOError(f"bad graph file {path}")
+    return nbrs
+
+
+def write_graph_padded(path: str, nbrs: np.ndarray) -> bool:
+    """Write a padded adjacency (valid edges first in each row) as a
+    reference-format graph file; False without the library."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    nbrs = np.ascontiguousarray(nbrs, dtype=np.int32)
+    rc = lib.write_graph_padded(
+        path.encode(), nbrs.reshape(-1), nbrs.shape[0], nbrs.shape[1])
+    if rc != 0:
+        raise IOError(f"cannot write graph file {path}")
+    return True

@@ -383,6 +383,7 @@ def test_tree_path_imports_no_jax():
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
