@@ -73,10 +73,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the launch counts reset just before and read just after, then the
      --dups inputs; each variant against a float64 oracle, its plain
      version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
-  9. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
-     launches on its main path (the beam kernel's: the graph path's and the
-     super tree's), its worst deviation, its times and bound;
-  10. the card line again, then {"ok": true, "device": {...}} as the last line.
+  9. the experiment layer (experiments/), in a temporary directory that is
+     also the benchmark driver's working directory (it writes results/ and
+     index_cache/ there): the adversarial set at the reference's scale
+     (1,000,000 x 100 angular, 100 clusters, 10,000 queries, seed 0) made
+     by datasets.generate_adversarial, its ground truth on the scan kernel
+     held against a float64 oracle on 256 queries (recall@10 1.0) and its
+     scan launch against the plain version on every window; the driver
+     (run_our_method.main) with --prefiltering on it (recall 1.0); then
+     the synthetic set at its defaults (100,000 x 64, 1,000 queries, 17
+     fractions) and the driver at 2^-2, beam 40 x2, R=48, L=100 for the
+     prefilter (recall 1.0) and the graph methods but the super tree
+     (phase 6 runs it at full width), each CSV row printed
+     with its scan and beam launches and plain-route searches, every count
+     reset just before each generator and driver run and read just after;
+  10. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+     launches on its main path (the scan kernel's: the prefilter path's and
+     the experiments'; the beam kernel's: the graph path's, the super
+     tree's and the experiments'), its worst deviation, its times and bound;
+  11. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1466,15 +1481,68 @@ def run_tree_path(torch, args, cache, data, flat_nbrs):
             raise AssertionError(f"tree {name} beam kernel launch: {mism:.4%} ids differ")
 
 
+@contextlib.contextmanager
+def recorded_scans():
+    """While open, every scan kernel call of the prefilter routing
+    (models/base.scan_topk) keeps its inputs and output in the yielded list
+    as (args, kwargs, out)."""
+    from rangefilteredann_tpu_torch.models import base
+
+    captured = []
+    real_scan = base.scan_topk
+
+    def recording_scan(*a, **kw):
+        out = real_scan(*a, **kw)
+        captured.append((a, kw, out))
+        return out
+
+    base.scan_topk = recording_scan
+    try:
+        yield captured
+    finally:
+        base.scan_topk = real_scan
+
+
+def hold_scan_launch(torch, a, kw, out, what):
+    """One scan kernel launch against the plain version on every one of its
+    windows, under the scan cases' rule (ids equal except at near-ties,
+    distances within RTOL/ATOL), the plain version run in blocks of
+    PLAIN_BLOCK windows to bound its [Q, tile] buffers. Logs the launch,
+    its kernel time beside its bound, and its grid; returns the largest
+    |dd|."""
+    from rangefilteredann_tpu_torch.ops import scan
+    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
+
+    data, norms, q_dev, st, en = a
+    k, metric = kw["k"], kw["metric"]
+    t0 = time.time()
+    parts = [scan_bruteforce(data, norms, q_dev[j:j + PLAIN_BLOCK], st[j:j + PLAIN_BLOCK],
+                             en[j:j + PLAIN_BLOCK], k + 1, metric)
+             for j in range(0, q_dev.shape[0], PLAIN_BLOCK)]
+    plain = tuple(torch.cat(x) for x in zip(*parts))
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    err, excused = compare_topk(out, plain, k, exact=False)
+    width = (en.long() - st.long()).clamp(min=0)
+    kernel_ms = cuda_time_ms(torch, lambda: scan.scan_topk(*a, **kw), 3)
+    flops, nbytes, _ = scan_work(a, kw)
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    log(f"{what} scan launch [{q_dev.shape[0]} windows of {int(width.min())}-"
+        f"{int(width.max())} rows, {int(width.sum())} in all, x {data.shape[0]} rows, "
+        f"{metric}, k {k}]: kernel == plain on every window, max|dd|={err:.3g}, near-ties "
+        f"excused={excused}; kernel {kernel_ms:.3f} ms, plain {plain_s:.1f} s; work "
+        f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB once, bound {b_ms:.4f} ms by {b_by}")
+    log(f"scan grid {what}: {grid_note(scan_grid(torch, a, kw))}")
+    return err
+
+
 def run_prefilter_tree_path(torch, args, data):
     """The prefilter-leaf B-WST (no build) over the prefilter path's store,
     fenwick on its 2^-2 batch: every covered bucket is an exact window. The
     scan kernel's launch of that call is then held against its plain
     version on the launch's own inputs. Returns the largest |dd|."""
     import rangefilteredann_tpu_torch as P
-    from rangefilteredann_tpu_torch.models import base
     from rangefilteredann_tpu_torch.ops import beam, scan
-    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
 
     points, labels, queries, batches = data
     filters = batches["frac2^-2"]
@@ -1486,21 +1554,12 @@ def run_prefilter_tree_path(torch, args, data):
     log(f"prefilter-leaf tree: {len(points)} x {D} on {tree.device}, "
         f"{len(tree._offsets)} rows, made in {time.time() - t0:.1f} s")
     qparams = P.build_query_params(K, K)
-    captured = []
-    real_scan = base.scan_topk
-
-    def recording_scan(*a, **kw):  # keeps the inputs and output of each launch
-        out = real_scan(*a, **kw)
-        captured.append((a, kw, out))
-        return out
-
-    base.scan_topk = recording_scan
-    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
-    try:
-        ids, dists = tree.batch_search(queries, filters, nq, "fenwick", qparams)
-    finally:
-        launches, beam_launches = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
-        base.scan_topk = real_scan
+    with recorded_scans() as captured:
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        try:
+            ids, dists = tree.batch_search(queries, filters, nq, "fenwick", qparams)
+        finally:
+            launches, beam_launches = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
     rng = np.random.default_rng(args.seed + 1)
     sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
     rec, overlap, _ = check_results(Oracle(points, labels), queries, filters, ids, dists,
@@ -1522,30 +1581,9 @@ def run_prefilter_tree_path(torch, args, data):
     if rec != 1.0 or launches < 1:
         raise AssertionError(f"prefilter-leaf tree: recall@{K} {rec} or no scan_topk launch")
 
-    # every window of the launch against the plain version, under the scan
-    # cases' rule (ids equal except at near-ties, distances within RTOL/ATOL),
-    # the plain version run in blocks of windows to bound its [Q, tile] buffers
-    worst = 0.0
-    for a, kw, out in captured:
-        data, norms, q_dev, st, en = a
-        k, metric = kw["k"], kw["metric"]
-        t0 = time.time()
-        parts = [scan_bruteforce(data, norms, q_dev[j:j + PLAIN_BLOCK], st[j:j + PLAIN_BLOCK],
-                                 en[j:j + PLAIN_BLOCK], k + 1, metric)
-                 for j in range(0, q_dev.shape[0], PLAIN_BLOCK)]
-        plain = tuple(torch.cat(x) for x in zip(*parts))
-        torch.cuda.synchronize()
-        plain_s = time.time() - t0
-        err, excused = compare_topk(out, plain, k, exact=False)
-        worst = max(worst, err)
-        width = (en.long() - st.long()).clamp(min=0)
-        kernel_ms = cuda_time_ms(torch, lambda: scan.scan_topk(*a, **kw), 3)
-        log(f"prefilter-leaf tree scan launch [{q_dev.shape[0]} windows of {int(width.min())}-"
-            f"{int(width.max())} rows, {int(width.sum())} in all, x {data.shape[0]} rows]: "
-            f"kernel == plain on every window, max|dd|={err:.3g}, near-ties excused="
-            f"{excused}; kernel {kernel_ms:.3f} ms, plain {plain_s:.1f} s")
-        log(f"scan grid prefilter-leaf tree: {grid_note(scan_grid(torch, a, kw))}")
-    return worst
+    # every window of each launch against the plain version
+    return max(hold_scan_launch(torch, a, kw, out, "prefilter-leaf tree")
+               for a, kw, out in captured)
 
 
 SUPER_SPLIT, SUPER_SHIFT = 2.0, 0.5  # bench.py:341-345
@@ -2002,6 +2040,182 @@ def run_variant_path(torch, args, errs):
             entry("probe", "scan_v3b.cu", "tools/exp_scan3b.py:60")]
 
 
+ADV_NAME, SYN_NAME = "adversarial-100-angular", "synthetic-64-euclidean"
+# the synthetic set's driver run: one width, beam and multiply, bench.py's
+# build (bench.py:48-49), the graph methods beside the exact prefilter; the
+# super tree is left out for the run's time limit (its build took 59.7 s
+# here, and phase 6 runs it at full width)
+SYN_ARGS = ["--experiment_filter_width", "2pow-2", "--beam_search_size", "40",
+            "--num_final_multiplies", "2", "--build_R", "48", "--build_L", "100",
+            "--prefiltering", "--postfiltering", "--optimized_postfiltering",
+            "--vamana_tree", "--three_split", "--smart_combined"]
+
+
+def gt_recall(folder, name, width, rng, angular):
+    """Recall@K of a protocol set's ground-truth file against a float64
+    numpy oracle on SAMPLE queries drawn by rng: a listed id counts when it
+    lies in its query's window (inclusive at both ends) and its true
+    distance is within TIE_EPS of the true k-th. Returns (recall, the
+    file's shape)."""
+    from rangefilteredann_tpu_torch.experiments import datasets as ds
+
+    data, queries, labels, _ = ds.initialize_dataset(name, folder)
+    ranges, gt = ds.get_queries_and_gt(name, width, folder)
+    sample = rng.choice(len(queries), size=min(SAMPLE, len(queries)), replace=False)
+    order = np.argsort(labels, kind="stable")
+    ls = labels[order]
+
+    def dist(ids, q):
+        x = data[ids].astype(np.float64)
+        return -(x @ q) if angular else ((x - q) ** 2).sum(axis=1)
+
+    hits = 0.0
+    for qi in sample:
+        lo, hi = ranges[qi]
+        q = queries[qi].astype(np.float64)
+        cand = order[np.searchsorted(ls, lo, "left"):np.searchsorted(ls, hi, "right")]
+        kth = np.partition(dist(cand, q), K - 1)[K - 1]
+        inside = (labels[gt[qi]] >= lo) & (labels[gt[qi]] <= hi)
+        hits += float((inside & (dist(gt[qi], q) <= kth + TIE_EPS)).sum()) / K
+    return hits / len(sample), gt.shape
+
+
+def run_driver(torch, argv):
+    """The port's run_our_method.main(argv) from the working directory, with
+    every kernel's launch count reset just before and read just after. Each
+    search's launches are also taken apart at its compute_recall call (the
+    driver scores each timed search right after it: its warm-up, its timed
+    run and, for the first search of an index, the build). Returns (CSV
+    rows, per-row (B1, B2 launches, plain-route calls, searches), B1
+    launches, B2 launches, seconds)."""
+    import csv
+
+    from rangefilteredann_tpu_torch.experiments import run_our_method as rom
+    from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    plain = [0, 0]
+    marks, per_row = [(0, 0, 0, 0)], []
+    real_recall, real_plain = rom.compute_recall, pv.batched_beam_search
+
+    def counting_plain(*a, **kw):  # query-mode searches that missed the kernel
+        plain[0] += 1
+        plain[1] += a[4].shape[0]
+        return real_plain(*a, **kw)
+
+    def marked_recall(*a, **kw):
+        now = (scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES, *plain)
+        per_row.append(tuple(x - y for x, y in zip(now, marks[-1])))
+        marks.append(now)
+        return real_recall(*a, **kw)
+
+    rom.compute_recall, pv.batched_beam_search = marked_recall, counting_plain
+    t0 = time.time()
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+    try:
+        rom.main(argv)
+    finally:
+        b1, b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+        rom.compute_recall, pv.batched_beam_search = real_recall, real_plain
+    seconds = time.time() - t0
+    name = argv[argv.index("--dataset") + 1]
+    with open(os.path.join("results", f"{name}_results.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(per_row):
+        raise AssertionError(f"{len(rows)} CSV rows for {len(per_row)} scored searches")
+    return rows, per_row, b1, b2, seconds
+
+
+def run_experiments_path(torch, args):
+    """The experiment layer (rangefilteredann_tpu_torch/experiments) in a
+    temporary directory that is also the benchmark driver's working
+    directory: the adversarial set at the reference's scale with its ground
+    truth on the scan kernel, the driver's prefiltering on it, then the
+    synthetic set and the driver's graph methods. Returns (B1 launches, B2
+    launches, the largest |dd| of the held B1 launch)."""
+    from rangefilteredann_tpu_torch.experiments import datasets as ds
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    rng = np.random.default_rng(args.seed + 3)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_experiments_") as work:
+        os.chdir(work)
+        try:
+            folder = os.path.join(work, "data")
+            # 1. the adversarial set, 1M x 100 angular, 100 clusters, 10,000
+            # queries, seed 0 (the reference's generate_advserial_dataset.py)
+            spans = {}
+            real_gt = ds.compute_ground_truths
+            ds.compute_ground_truths = span_timer(torch, spans, real_gt, "gt")
+            t0 = time.time()
+            with recorded_scans() as captured:
+                scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # just before
+                try:
+                    ds.generate_adversarial(folder, seed=0)
+                finally:
+                    gen_b1, gen_b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+                    ds.compute_ground_truths = real_gt
+            total = time.time() - t0
+            gt_s = spans["gt"] / 1e3
+            rec, shape = gt_recall(folder, ADV_NAME, "", rng, angular=True)
+            log(f"experiments {ADV_NAME}: generated in {total - gt_s:.1f} s, ground truth "
+                f"{shape} in {gt_s:.1f} s on the card (scan_topk launches {gen_b1}, "
+                f"beam_search {gen_b2}); ground-truth recall@{K} {rec} against the float64 "
+                f"oracle on {SAMPLE} queries")
+            if rec != 1.0 or gen_b1 < 1:
+                raise AssertionError(f"{ADV_NAME} ground truth: recall@{K} {rec}, "
+                                     f"scan_topk launches {gen_b1}")
+            a, kw, out = max(captured, key=lambda c: c[0][2].shape[0])
+            err = hold_scan_launch(torch, a, kw, out, f"{ADV_NAME} ground truth")
+            del captured, a, kw, out
+            torch.cuda.empty_cache()
+
+            # 2. the driver's prefiltering on it
+            rows, per_row, b1, b2, secs = run_driver(
+                torch, ["--dataset", ADV_NAME, "--data_folder", folder, "--prefiltering"])
+            for row, (r1, r2, _, _) in zip(rows, per_row):
+                log(f"experiments {ADV_NAME} driver row: {dict(row)}; scan_topk launches "
+                    f"{r1}, beam_search {r2}")
+            log(f"experiments {ADV_NAME} driver: {secs:.1f} s, scan_topk launches {b1}, "
+                f"beam_search {b2}")
+            if [r["method"] for r in rows] != ["prefiltering"] or \
+                    float(rows[0]["recall"]) != 1.0 or b1 < 1:
+                raise AssertionError(f"{ADV_NAME} driver: rows {rows}, scan_topk {b1}")
+            b1_all, b2_all = gen_b1 + b1, gen_b2 + b2
+            for f in os.listdir(folder):
+                os.remove(os.path.join(folder, f))  # 0.9 GB of protocol files
+            torch.cuda.empty_cache()
+
+            # 3. the synthetic set at its defaults (100,000 x 64, 1,000
+            # queries, 17 fractions), then the graph methods
+            scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # just before
+            t0 = time.time()
+            ds.generate_synthetic(folder)
+            gen_b1, gen_b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+            recs = {w: gt_recall(folder, SYN_NAME, w, rng, angular=False)[0]
+                    for w in ("2pow-13", "2pow-6", "2pow-2", "2pow0")}
+            log(f"experiments {SYN_NAME}: generated with ground truth in "
+                f"{time.time() - t0:.1f} s (scan_topk launches {gen_b1}, beam_search "
+                f"{gen_b2}); ground-truth recall@{K} {recs}")
+            if min(recs.values()) != 1.0 or gen_b1 < 1:
+                raise AssertionError(f"{SYN_NAME} ground truth: recall {recs}, scan_topk "
+                                     f"launches {gen_b1}")
+            rows, per_row, b1, b2, secs = run_driver(
+                torch, ["--dataset", SYN_NAME, "--data_folder", folder] + SYN_ARGS)
+            for row, (r1, r2, pc, ps) in zip(rows, per_row):
+                log(f"experiments {SYN_NAME} driver row: {dict(row)}; scan_topk launches "
+                    f"{r1}, beam_search {r2}, query-mode batched_beam_search calls {pc} "
+                    f"over {ps} searches")
+            log(f"experiments {SYN_NAME} driver: {secs:.1f} s, scan_topk launches {b1}, "
+                f"beam_search {b2}")
+            pre = [r for r in rows if r["method"] == "prefiltering"]
+            if len(pre) != 1 or float(pre[0]["recall"]) != 1.0 or len(rows) != 6 or b2 < 1:
+                raise AssertionError(f"{SYN_NAME} driver: rows {rows}, beam_search {b2}")
+            return b1_all + gen_b1 + b1, b2_all + gen_b2 + b2, err
+        finally:
+            os.chdir(cwd)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2076,10 +2290,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 8. the scan-variant harness
     entries += run_variant_path(torch, args, variant_errs)
+    torch.cuda.empty_cache()
+    # 9. the experiment layer
+    exp_b1, exp_b2, exp_err = run_experiments_path(torch, args)
+    scan_entry["launches"] += exp_b1
+    beam_entry["launches"] += exp_b2
+    scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], exp_err)
 
-    # 9. inventory
+    # 10. inventory
     print(json.dumps({"kernels": entries}), flush=True)
-    # 10. the card, then the result
+    # 11. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -15,7 +15,9 @@ file-based `VamanaIndex` and `build_vamana_index`, `utils/io.py` (the
 reference's vector, graph and ground-truth files), `filters.py`, the
 factories of `wrapper.py`, the `window_ann` class names
 (`rangefilteredann_tpu_torch.window_ann`) and the command line
-(`python -m rangefilteredann_tpu_torch.cli`).
+(`python -m rangefilteredann_tpu_torch.cli`), and the experiment layer
+(`rangefilteredann_tpu_torch.experiments`: protocol datasets, the benchmark
+driver, the studies and the baseline runners).
 """
 
 from .params import (  # noqa: F401

@@ -1,16 +1,17 @@
 """Per-query search statistics and graph statistics.
 
-A copy of rangefilteredann_tpu/utils/stats.py (pure numpy), kept here so
-that the port never imports the JAX package (ref:
-ParlayANN/algorithms/utils/stats.h:43-88, graph_stats_ :90+). The searches
-return their counters (BeamResult.num_visited / .dist_cmps); this module
-accumulates them per query on the host and reports the average and 99th
-percentile.
+A copy of rangefilteredann_tpu/utils/stats.py (numpy, and torch to fetch a
+BeamResult's counters), kept here so that the port never imports the JAX
+package (ref: ParlayANN/algorithms/utils/stats.h:43-88, graph_stats_ :90+).
+The searches return their counters (BeamResult.num_visited / .dist_cmps);
+this module accumulates them per query on the host and reports the average
+and 99th percentile.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class QueryStats:
@@ -27,6 +28,13 @@ class QueryStats:
 
     def increment_dist(self, i, cnt) -> None:
         np.add.at(self.distances, i, cnt)
+
+    def add_beam_result(self, query_ids, result) -> None:
+        """Fold a BeamResult's counters (tensors on any device) into the
+        per-query totals."""
+        nq = len(query_ids)
+        self.increment_visited(query_ids, _host(result.num_visited)[:nq])
+        self.increment_dist(query_ids, _host(result.dist_cmps)[:nq])
 
     @staticmethod
     def _two_stats(arr: np.ndarray):
@@ -52,6 +60,9 @@ class QueryStats:
         self.visited[:] = 0
         self.distances[:] = 0
 
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def graph_stats(nbrs_host: np.ndarray):

@@ -25,6 +25,9 @@ from .params import (
     DEFAULT_CUTOFF,
     DEFAULT_SHIFT_FACTOR,
     DEFAULT_SPLIT_FACTOR,
+    BuildParams,
+    QueryParams,
+    build_query_params,
 )
 
 _DTYPES = {"float": np.float32, "uint8": np.uint8, "int8": np.int8}
@@ -134,6 +137,9 @@ def build_vamana_index_fn(metric: str, dtype: str):
 
 
 __all__ = [
+    "BuildParams",
+    "QueryParams",
+    "build_query_params",
     "build_vamana_index_fn",
     "postfilter_vamana_constructor",
     "prefilter_index_constructor",

@@ -21,9 +21,13 @@ from rangefilteredann_tpu_torch import native as pnative
 from rangefilteredann_tpu_torch.models import range_filter_tree as PRFT
 from rangefilteredann_tpu_torch.params import QueryParams
 
-pytestmark = pytest.mark.skipif(
-    not (pnative.available() and jnative.available()),
-    reason="native library unavailable (no g++)")
+from .torch_native_bridge import load_reference_bridge
+
+
+@pytest.fixture(scope="module", autouse=True)
+def bridges():
+    """Both bridges over one whole library (skips only without g++)."""
+    load_reference_bridge()
 
 
 def _random_ranges(rng, n, nq):

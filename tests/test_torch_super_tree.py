@@ -33,6 +33,8 @@ from rangefilteredann_tpu_torch.models import super_postfilter_tree as PSPT
 from rangefilteredann_tpu_torch.utils.data import first_geq
 from rangefilteredann_tpu_torch.utils.stats import QueryStats
 
+from .torch_native_bridge import load_reference_bridge
+
 RTOL, ATOL = 1e-5, 1e-4
 N, D, K = 2000, 24, 10
 CUTOFF, SPLIT, SHIFT, SEED = 300, 2.0, 0.5, 5
@@ -203,7 +205,7 @@ def test_routers_match_jax(n, python_router):
     saved = pnative._lib, pnative._tried
     pnative._lib, pnative._tried = None, False
     try:
-        assert pnative.available()
+        load_reference_bridge()
         nat_rows, nat_b = ptree._route_batch(lo, hi)
         p_nat = pnative.route_super_batch(rows, n, lo[act], hi[act])
     finally:

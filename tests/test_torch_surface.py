@@ -30,6 +30,8 @@ from rangefilteredann_tpu_torch.models.vamana_index import VamanaIndex, build_va
 from rangefilteredann_tpu_torch.utils import io as pio
 from rangefilteredann_tpu_torch.utils.stats import graph_stats
 
+from .torch_native_bridge import load_reference_bridge
+
 RTOL, ATOL = 1e-5, 1e-4
 FLT_MAX = np.finfo(np.float32).max
 
@@ -90,7 +92,7 @@ def test_graph_file_same_bytes_and_cross_read(tmp_path, bridge, request):
     if bridge == "numpy":
         request.getfixturevalue("no_native")
     else:
-        assert pnative.available() and jnative.available()
+        load_reference_bridge()
     nbrs = _packed_graph(np.random.default_rng(2))
     p, j = str(tmp_path / "p.bin"), str(tmp_path / "j.bin")
     pio.write_graph_file(p, nbrs)
@@ -118,7 +120,7 @@ def test_groundtruth_file_same_bytes_and_cross_read(tmp_path):
 
 
 def test_native_graph_padded_matches_jax(tmp_path):
-    assert pnative.available() and jnative.available()
+    load_reference_bridge()
     nbrs = _packed_graph(np.random.default_rng(4), n=300, r=12)
     p, j = str(tmp_path / "p.bin"), str(tmp_path / "j.bin")
     assert pnative.write_graph_padded(p, nbrs) and jnative.write_graph_padded(j, nbrs)
