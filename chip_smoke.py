@@ -87,11 +87,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (phase 6 runs it at full width), each CSV row printed
      with its scan and beam launches and plain-route searches, every count
      reset just before each generator and driver run and read just after;
-  10. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
-     launches on its main path (the scan kernel's: the prefilter path's and
-     the experiments'; the beam kernel's: the graph path's, the super
-     tree's and the experiments'), its worst deviation, its times and bound;
-  11. the card line again, then {"ok": true, "device": {...}} as the last line.
+  10. the scale-out (parallel/sharded.py) over a mesh of 4 shards,
+     cuda:0..3 when there are four cards, else four logical shards on one
+     (cross-device copies are then no-ops): the index-sharded scan on phase
+     4's store and 2^-2 batch (ids identical to the unsharded scan kernel
+     launch, its launches counted and each held against the plain version,
+     walls in turns beside the unsharded launch; window cases across shard
+     boundaries, clipped to zero rows and to fewer than k rows, each
+     per-shard launch held against the plain version), phase 5's PostfilterVamanaIndex loaded from the cache and
+     sharded (recall@10 >= 0.99, ids equal to its unsharded plain route on
+     the whole batch, no beam-kernel launch, both walls), phase 6's
+     Vamana-leaf tree loaded from its row caches and sharded with
+     shard_rows=True for fenwick, optimized_postfilter and three_split
+     (recall@10 >= 0.99, ids equal to the unsharded plain route, run with
+     TREE_INLINE_BUDGET 0, on the whole batch, no beam-kernel launch, both
+     walls and a host breakdown), and dryrun_multidevice;
+  11. one `kernels` JSON line: each kernel, the TPU kernel it replaces, its
+     launches on its main path (the scan kernel's: the prefilter path's,
+     the experiments' and the scale-out's; the beam kernel's: the graph
+     path's, the super tree's and the experiments'), its worst deviation,
+     its times and bound;
+  12. the card line again, then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1524,7 +1540,8 @@ def hold_scan_launch(torch, a, kw, out, what):
     plain_s = time.time() - t0
     err, excused = compare_topk(out, plain, k, exact=False)
     width = (en.long() - st.long()).clamp(min=0)
-    kernel_ms = cuda_time_ms(torch, lambda: scan.scan_topk(*a, **kw), 3)
+    with torch.cuda.device(data.device):  # the events on the launch's own card
+        kernel_ms = cuda_time_ms(torch, lambda: scan.scan_topk(*a, **kw), 3)
     flops, nbytes, _ = scan_work(a, kw)
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
     log(f"{what} scan launch [{q_dev.shape[0]} windows of {int(width.min())}-"
@@ -2216,6 +2233,334 @@ def run_experiments_path(torch, args):
             os.chdir(cwd)
 
 
+# ------------------------------------------------------------ scale-out --
+
+SHARDS = 4  # the mesh: cuda:0..3 when the card count allows, else logical shards
+SHARD_TREE_METHODS = ("fenwick", "optimized_postfilter", "three_split")
+
+
+def best_wall(torch, fn, reps):
+    """(best ms, [ms]) of `reps` calls of fn, each ended by a synchronise."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return min(walls), [round(w, 3) for w in walls]
+
+
+@contextlib.contextmanager
+def recorded_shard_scans():
+    """While open, every per-shard scan of parallel/sharded.py keeps its
+    inputs and output in the yielded list as (args, kwargs, out)."""
+    from rangefilteredann_tpu_torch.parallel import sharded
+
+    captured = []
+    real = sharded.scan_topk
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        captured.append((a, kw, out))
+        return out
+
+    sharded.scan_topk = recording
+    try:
+        yield captured
+    finally:
+        sharded.scan_topk = real
+
+
+def shard_scan_cases(torch, n_local, n_real, nq, dev):
+    """(name, starts, ends) window cases over a store cut in SHARDS shards of
+    n_local rows: windows across one and two shard boundaries, windows
+    inside one shard (clipped to zero rows on the others), windows with
+    fewer than k rows on each side of a boundary, and empty windows."""
+    rng = np.random.default_rng(77)
+    w = n_local // 12  # ~20,000 rows at the prefilter path's store
+    edges = np.arange(1, SHARDS) * n_local
+    at = rng.choice(edges, size=nq)
+    one = (at - rng.integers(1, w, nq), at + rng.integers(1, w, nq))
+    two = (rng.integers(0, n_local - w, nq), edges[1] + rng.integers(1, w, nq))
+    s = rng.integers(0, SHARDS, nq) * n_local + rng.integers(0, n_local - 3 * w, nq)
+    inside = (s, s + rng.integers(1, 3 * w, nq))
+    short = (at - rng.integers(0, K, nq), at + rng.integers(0, K, nq))
+    s = rng.integers(0, n_real, nq)
+    empty = (s, s)
+    out = []
+    for name, (s, e) in (("one boundary", one), ("two boundaries", two),
+                         ("inside one shard", inside), ("< k rows a side", short),
+                         ("empty", empty)):
+        s = np.clip(s, 0, n_real)
+        e = np.clip(e, 0, n_real)
+        out.append((name, torch.from_numpy(s.astype(np.int32)).to(dev),
+                    torch.from_numpy(e.astype(np.int32)).to(dev)))
+    return out
+
+
+def run_sharded_scan(torch, mesh, batch_inputs):
+    """The index-sharded scan on the prefilter path's store and its 2^-2
+    batch: ids identical to the unsharded scan kernel launch, each of its
+    per-shard launches held against the plain version, walls beside the
+    unsharded launch, then window cases whose every per-shard launch is
+    held too. Returns (scan launches of the main call, largest |dd|)."""
+    from rangefilteredann_tpu_torch.ops import beam, scan
+    from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
+    from rangefilteredann_tpu_torch.parallel import sharded
+
+    a, kw = batch_inputs
+    data, norms, q_dev, st, en = a
+    k, metric, d_eff = kw["k"], kw["metric"], kw.get("d_eff")
+    data_sh, norms_sh = sharded.shard_rows(mesh, data, norms)
+    n_local = data_sh[0].shape[0]
+
+    def call(q=q_dev, s=st, e=en):
+        return sharded.sharded_scan_bruteforce(mesh, data_sh, norms_sh, q, s, e, k, metric,
+                                               d_eff=d_eff)
+
+    ref_d, ref_i = scan.scan_topk(*a, **kw)
+    with recorded_shard_scans() as main_launches:
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        got_d, got_i = call()
+        torch.cuda.synchronize()
+        launches, b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+    same = bool(torch.equal(got_i, ref_i))
+    fin = torch.isfinite(ref_d)
+    dd = float((got_d[fin] - ref_d[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if not same or not torch.equal(torch.isfinite(got_d), fin):
+        raise AssertionError(f"sharded scan: {int((got_i != ref_i).sum())} ids differ from "
+                             "the unsharded launch")
+    if launches != mesh.size or b2:
+        raise AssertionError(f"sharded scan: {launches} scan_topk launches, {b2} beam_search")
+    walls = {}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
+        fn = (lambda: scan.scan_topk(*a, **kw)) if name == "unsharded" else call
+        best, runs = best_wall(torch, fn, 3)
+        walls.setdefault(name, []).append((best, runs))
+    log(f"sharded scan [{q_dev.shape[0]} queries x {data.shape[0]} rows in {mesh.size} "
+        f"shards of {n_local} on {[str(d) for d in mesh.devices]}, k {k}]: ids identical "
+        f"to the unsharded launch, max|dd|={dd:.3g}; scan_topk launches {launches}; wall "
+        f"best of 3 (host clock, synchronised, in turns): sharded "
+        f"{[w for w, _ in walls['sharded']]} ms, unsharded "
+        f"{[w for w, _ in walls['unsharded']]} ms; runs {walls}")
+
+    worst = dd
+    for i, (ca, ckw, cout) in enumerate(main_launches):  # each shard's launch, whole
+        worst = max(worst, hold_scan_launch(
+            torch, ca, ckw, cout, f"sharded scan shard {i} ({ca[0].device})"))
+    qc = q_dev[:2048]
+    for name, s, e in shard_scan_cases(torch, n_local, int(en.max()), qc.shape[0],
+                                       q_dev.device):
+        with recorded_shard_scans() as captured:
+            out = call(qc, s, e)
+        plain = scan_bruteforce(data, norms, qc, s, e, k + 1, metric)
+        err, excused = compare_topk(out, plain, k, exact=False)
+        worst = max(worst, err)
+        width = (e.long() - s.long()).clamp(min=0)
+        log(f"sharded scan case '{name}' [{qc.shape[0]} windows of {int(width.min())}-"
+            f"{int(width.max())} rows]: merged == plain on the whole store, "
+            f"max|dd|={err:.3g}, near-ties excused={excused}; "
+            f"{int((out[1] == 2**31 - 1).sum())} empty slots")
+        for i, (ca, ckw, cout) in enumerate(captured):
+            worst = max(worst, hold_scan_launch(
+                torch, ca, ckw, cout, f"sharded scan case '{name}' shard {i} "
+                f"({ca[0].device})"))
+    return launches, worst
+
+
+def run_query_sharded_graph(torch, args, mesh, cache, data):
+    """The graph path's PostfilterVamanaIndex (loaded from the run's cache)
+    sharded over the mesh: recall, no beam-kernel launch, ids equal to the
+    unsharded plain route on the whole batch, walls of both. Returns its
+    scan kernel launches."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.ops import beam, scan
+    from rangefilteredann_tpu_torch.parallel import sharded
+
+    points, labels, queries, batches = data
+    filters = batches["frac2^-2"]
+    nq = len(queries)
+    t0 = time.time()
+    idx = P.PostfilterVamanaIndex(points, labels, tree_build_params(P, cache),
+                                  require_cache=True)
+    g = idx._graph
+    g.nbr_vecs = g.nbr_norms = g.nbr_scale = None  # the plain route, for the reference
+    torch.cuda.empty_cache()
+    qparams = P.build_query_params(K, 80, final_beam_multiply=2)
+    t1 = time.perf_counter()
+    ref_i, _ = idx.batch_search(queries, filters, nq, qparams)
+    ref_ms = (time.perf_counter() - t1) * 1e3
+    idx.shard(mesh)
+    log(f"query-sharded graph: PostfilterVamanaIndex loaded from the cache and sharded over "
+        f"{[str(d) for d in mesh.devices]} in {time.time() - t0:.1f} s (with its unsharded "
+        f"plain-route reference, {ref_ms:.3f} ms for the {nq} queries)")
+    searches = []
+    real = sharded.batched_beam_search
+
+    def counting(*a, **kw):  # each shard's search: (its device, its queries)
+        searches.append((str(a[4].device), a[4].shape[0]))
+        return real(*a, **kw)
+
+    sharded.batched_beam_search = counting
+    scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+    t0 = time.perf_counter()
+    try:
+        ids, dists = idx.batch_search(queries, filters, nq, qparams)
+    finally:
+        b1, b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+        sharded.batched_beam_search = real
+    first = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    rec, overlap, _ = check_results(Oracle(points, labels), queries, filters, ids, dists, K,
+                                    sample, hi_side="right")
+    same = bool(np.array_equal(ids, ref_i))
+    best, runs = best_wall(torch, lambda: idx.batch_search(queries, filters, nq, qparams), 2)
+    per_dev = {}
+    for dev, n in searches:
+        per_dev[dev] = per_dev.get(dev, 0) + n
+    log(f"query-sharded graph frac2^-2 beam 80 x2 [{nq} queries]: recall@{K} {rec} on "
+        f"{len(sample)} queries (id-set overlap {overlap}); ids equal to the unsharded "
+        f"plain route ({ref_ms:.3f} ms, one call) on all {nq} queries: {same}; beam_search launches {b2}, scan_topk "
+        f"launches {b1}; {len(searches)} per-shard searches, queries searched per device "
+        f"{per_dev}; wall best of 2 {best:.3f} ms, QPS {nq / best * 1e3:.1f}, runs {runs} "
+        f"(first call {first * 1e3:.3f} ms)")
+    if rec < 0.99 or not same or b2 != 0:
+        raise AssertionError(f"query-sharded graph: recall@{K} {rec}, ids equal {same}, "
+                             f"beam_search launches {b2}")
+    return b1
+
+
+def sharded_tree_breakdown(torch, tree, queries, filters, qparams, method, nq):
+    """Host clock around the scale-out stages of one sharded tree
+    batch_search: the queries' placement on the shards, the per-shard
+    searches (bucket-sharded rows, and the query-sharded row 0), the window
+    filter of the doubling and its exact tail, each between two
+    synchronises; "other" holds the rest. Returns (total ms, {stage: ms})."""
+    from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+    from rangefilteredann_tpu_torch.parallel import sharded
+
+    spans = {}
+    marked = functools.partial(span_timer, torch, spans)
+    names = {(sharded, "_placement"): "placement",
+             (sharded, "batched_beam_search"): "per-shard searches",
+             (pv, "window_filter_topk"): "window filter",
+             (pv, "batched_range_bruteforce"): "exact tail"}
+    real = {key: getattr(*key) for key in names}
+    for (mod, attr), name in names.items():
+        setattr(mod, attr, marked(real[(mod, attr)], name))
+    try:
+        total, _ = best_wall(torch, lambda: tree.batch_search(queries, filters, nq, method,
+                                                              qparams), 1)
+    finally:
+        for (mod, attr), fn in real.items():
+            setattr(mod, attr, fn)
+    spans["other"] = total - sum(spans.values())
+    return total, spans
+
+
+def run_bucket_sharded_tree(torch, args, mesh, cache, data):
+    """The tree path's Vamana-leaf B-WST loaded from the run's row caches,
+    each method's plain route on the whole batch unsharded (no inline
+    blocks, timed), then sharded with shard_rows=True: recall, ids equal to that
+    reference, wall and a host breakdown. Returns its scan kernel launches."""
+    import rangefilteredann_tpu_torch as P
+    from rangefilteredann_tpu_torch.models import base
+    from rangefilteredann_tpu_torch.ops import beam, scan
+
+    points, labels, queries, batches = data
+    filters = batches["frac2^-2"]
+    nq = len(queries)
+    t0 = time.time()
+    tree = P.RangeFilterTreeIndex(points, labels, cutoff=TREE_CUTOFF, split_factor=TREE_SPLIT,
+                                  build_params=tree_build_params(P, cache), require_cache=True)
+    loaded = time.time() - t0
+    qps = {m: P.build_query_params(K, TREE_BEAM, final_beam_multiply=TREE_FM)
+           for m in SHARD_TREE_METHODS}
+    saved, base.TREE_INLINE_BUDGET = base.TREE_INLINE_BUDGET, 0  # the plain route
+    try:
+        refs = {}
+        for m in SHARD_TREE_METHODS:
+            t0 = time.perf_counter()
+            ref_i = tree.batch_search(queries, filters, nq, m, qps[m])[0]
+            refs[m] = ref_i, (time.perf_counter() - t0) * 1e3
+    finally:
+        base.TREE_INLINE_BUDGET = saved
+    t0 = time.time()
+    tree.shard(mesh, shard_rows=True)
+    torch.cuda.synchronize()
+    log(f"bucket-sharded tree: loaded from the row caches in {loaded:.1f} s; sharded over "
+        f"{[str(d) for d in mesh.devices]} in {time.time() - t0:.1f} s; rows sharded "
+        f"{sorted(tree._sharded)}, replicated {[r for r in range(len(tree._graphs)) if r not in tree._sharded]}; " + "; ".join(
+            f"row {r}: {len(row.bucket_device)} buckets, ms {row.ms}, real rows a shard "
+            f"{(row.local_to_global >= 0).sum(axis=1).tolist()}"
+            for r, row in sorted(tree._sharded.items())))
+    if sorted(tree._sharded) != list(range(1, len(tree._graphs))):
+        raise AssertionError(f"rows sharded {sorted(tree._sharded)}")
+    rng = np.random.default_rng(args.seed + 1)
+    sample = rng.choice(nq, size=min(SAMPLE, nq), replace=False)
+    oracle = Oracle(points, labels)
+    b1_all = 0
+    for m in SHARD_TREE_METHODS:
+        torch.cuda.synchronize()
+        scan.SCAN_LAUNCHES = beam.BEAM_LAUNCHES = 0  # every kernel's count, just before
+        t0 = time.perf_counter()
+        try:
+            ids, dists = tree.batch_search(queries, filters, nq, m, qps[m])
+        finally:
+            b1, b2 = scan.SCAN_LAUNCHES, beam.BEAM_LAUNCHES  # just after
+        wall = (time.perf_counter() - t0) * 1e3  # the results are on the host
+        b1_all += b1
+        rec, overlap, _ = check_results(oracle, queries, filters, ids, dists, K, sample,
+                                        pad_id=0)
+        same = bool(np.array_equal(ids, refs[m][0]))
+        total, spans = sharded_tree_breakdown(torch, tree, queries, filters, qps[m], m, nq)
+        log(f"bucket-sharded tree {m} frac2^-2 beam {TREE_BEAM} x{TREE_FM} [{nq} queries]: "
+            f"recall@{K} {rec} on {len(sample)} queries (id-set overlap {overlap}); ids equal "
+            f"to the unsharded plain route ({refs[m][1]:.3f} ms, one call) on all {nq} "
+            f"queries: {same}; wall "
+            f"{wall:.3f} ms (one call), QPS {nq / wall * 1e3:.1f}; beam_search launches "
+            f"{b2}, scan_topk launches {b1}")
+        log(f"bucket-sharded tree {m} host breakdown: total {total:.3f} ms; " + "; ".join(
+            f"{k} {ms:.3f} ms" for k, ms in spans.items()))
+        if rec < 0.99 or not same or b2 != 0:
+            raise AssertionError(f"bucket-sharded tree {m}: recall@{K} {rec}, ids equal "
+                                 f"{same}, beam_search launches {b2}")
+    return b1_all
+
+
+def run_sharded_path(torch, args, batch_inputs, cache, data):
+    """Phase 10: the scale-out over a mesh of SHARDS shards (cuda:0..3 when
+    there are four cards, else logical shards on one). Returns (scan kernel
+    launches of the phase's calls, the largest |dd| of its held launches)."""
+    from rangefilteredann_tpu_torch.parallel import sharded
+    from rangefilteredann_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(SHARDS)]
+    mesh = sharded.make_mesh(devices=devices)
+    log(f"scale-out: mesh of {mesh.size} shards on {[str(d) for d in mesh.devices]} "
+        f"({len(mesh.distinct)} distinct device(s): "
+        f"{[torch.cuda.get_device_name(d) for d in mesh.distinct]})")
+    t0 = time.time()
+    b1, err = run_sharded_scan(torch, mesh, batch_inputs)
+    log(f"sharded scan phase in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    b1 += run_query_sharded_graph(torch, args, mesh, cache, data)
+    log(f"query-sharded graph phase in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    b1 += run_bucket_sharded_tree(torch, args, mesh, cache, data)
+    log(f"bucket-sharded tree phase in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    dryrun_multidevice(SHARDS, devices=devices)
+    log(f"dryrun_multidevice({SHARDS}, devices={devices}): passed in "
+        f"{time.time() - t0:.1f} s")
+    return b1, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2267,9 +2612,10 @@ def main() -> int:
     # 4-5. the main paths
     prefilter_data, batch_inputs, scan_entry = run_prefilter_path(torch, args, scan_worst)
     run_variants_on_batch(torch, batch_inputs, scan_entry["ms"], variant_errs)
-    del batch_inputs
     entries = [scan_entry]
     torch.cuda.empty_cache()
+    # the graph path's cache directory lasts to the scale-out phase, which
+    # loads its graph and the tree's rows from it
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as cache:
         graph_data, flat_nbrs, beam_entry = run_graph_path(torch, args, beam_worst, cache)
         entries.append(beam_entry)
@@ -2282,24 +2628,29 @@ def main() -> int:
         torch.cuda.empty_cache()
         # 7. the file-based surface
         run_vamana_index_path(torch, args, cache, graph_data, flat_nbrs)
-    del graph_data, flat_nbrs
-    torch.cuda.empty_cache()
-    tree_err = run_prefilter_tree_path(torch, args, prefilter_data)
-    scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], tree_err)
-    del prefilter_data
-    torch.cuda.empty_cache()
-    # 8. the scan-variant harness
-    entries += run_variant_path(torch, args, variant_errs)
-    torch.cuda.empty_cache()
-    # 9. the experiment layer
-    exp_b1, exp_b2, exp_err = run_experiments_path(torch, args)
-    scan_entry["launches"] += exp_b1
-    beam_entry["launches"] += exp_b2
-    scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], exp_err)
+        torch.cuda.empty_cache()
+        tree_err = run_prefilter_tree_path(torch, args, prefilter_data)
+        scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], tree_err)
+        torch.cuda.empty_cache()
+        # 8. the scan-variant harness
+        entries += run_variant_path(torch, args, variant_errs)
+        torch.cuda.empty_cache()
+        # 9. the experiment layer
+        exp_b1, exp_b2, exp_err = run_experiments_path(torch, args)
+        scan_entry["launches"] += exp_b1
+        beam_entry["launches"] += exp_b2
+        scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], exp_err)
+        del flat_nbrs, prefilter_data
+        torch.cuda.empty_cache()
+        # 10. the scale-out
+        shard_b1, shard_err = run_sharded_path(torch, args, batch_inputs, cache, graph_data)
+        scan_entry["launches"] += shard_b1
+        scan_entry["max_abs_err"] = max(scan_entry["max_abs_err"], shard_err)
+    del batch_inputs, graph_data
 
-    # 10. inventory
+    # 11. inventory
     print(json.dumps({"kernels": entries}), flush=True)
-    # 11. the card, then the result
+    # 12. the card, then the result
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

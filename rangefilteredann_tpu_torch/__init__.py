@@ -17,7 +17,10 @@ factories of `wrapper.py`, the `window_ann` class names
 (`rangefilteredann_tpu_torch.window_ann`) and the command line
 (`python -m rangefilteredann_tpu_torch.cli`), and the experiment layer
 (`rangefilteredann_tpu_torch.experiments`: protocol datasets, the benchmark
-driver, the studies and the baseline runners).
+driver, the studies and the baseline runners), and the scale-out
+(`rangefilteredann_tpu_torch.parallel`: a mesh of devices driven by one
+process, the indices' `shard` methods, the index-sharded scan and
+bucket-sharded tree rows).
 """
 
 from .params import (  # noqa: F401

@@ -10,8 +10,10 @@ batch at one beam.
 
 On the card, every query-mode search the beam kernel covers (ops/beam.py,
 kernel_covers) goes to the kernel; the rest, and the build's searches, take
-ops/beam_search.batched_beam_search. The JAX package's mesh sharding and its
-device query cache (a remote-TPU-link workaround) are not ported.
+ops/beam_search.batched_beam_search. After `shard(mesh)` the batches split
+over the mesh's devices and every search takes the plain
+batched_beam_search (parallel/sharded.py), as the JAX package's mesh path
+does. Its device query cache (a remote-TPU-link workaround) is not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ from ..ops.beam_search import (
     window_filter_topk,
 )
 from ..ops.topk import EMPTY_ID
+from ..parallel.sharded import (
+    ShardedGraphRow,
+    replicate_index,
+    sharded_beam_search,
+    sharded_row_search,
+)
 from ..params import BuildParams, QueryParams
 from ..utils.data import first_geq, make_pointset, pad_queries, sort_by_labels
 from .base import (
@@ -59,14 +67,30 @@ SPECULATE = True
 RERANK_SLACK = 8
 
 
-def run_beam_batch(ps, graph: SlabGraph, qs: torch.Tensor, st: torch.Tensor,
+def run_beam_batch(ps, graph, qs: torch.Tensor, st: torch.Tensor,
                    beam: int, limit: int, metric: str,
-                   degree_limit: int = 0) -> BeamResult:
+                   degree_limit: int = 0, mesh=None) -> BeamResult:
     """One batched query-mode search at a fixed beam, of the queries `qs`
     [Q, d_pad] from the slab ids `st` [Q], both on the store's device: the
-    beam kernel where it covers the search, batched_beam_search otherwise."""
+    beam kernel where it covers the search, batched_beam_search otherwise.
+    With a mesh, the batch splits over its devices and every chunk takes
+    batched_beam_search over the replicas of replicate_index. A
+    bucket-sharded row (a parallel.sharded.ShardedGraphRow in place of the
+    SlabGraph) searches each query on the shard owning its bucket."""
     act = torch.ones(st.shape[0], dtype=torch.bool, device=qs.device)
     beam = int(beam)
+    if isinstance(graph, ShardedGraphRow):
+        return sharded_row_search(
+            graph, qs, st, beam=beam, limit=int(limit), metric=metric,
+            degree_limit=int(degree_limit),
+            norm_col=ps.norm_col if ps.norm_col >= 0 else None)
+    if mesh is not None:
+        return sharded_beam_search(
+            mesh, *ps.replicas, *graph.replicas, qs, st, beam=beam, k=0, cut=1.35,
+            limit=int(limit), metric=metric, active_in=act,
+            expand=default_expand(beam), degree_limit=int(degree_limit),
+            norm_col=ps.norm_col if ps.norm_col >= 0 else None,
+            identity_map=graph.identity_s2g)
     if kernel_covers(graph, beam, degree_limit):
         d0 = start_distances(ps, graph, qs, st, metric)
         w = graph.nbr_vecs.shape[2]
@@ -92,7 +116,7 @@ def _dl(qp, graph) -> int:
 
 def doubling_postfilter(
     ps,
-    graph: SlabGraph,
+    graph,  # SlabGraph, or a bucket-sharded row (parallel.sharded.ShardedGraphRow)
     queries_padded: np.ndarray,  # [Q, d_pad]
     starts: np.ndarray,  # [Q] slab start ids
     win_lo: np.ndarray,  # [Q] global sorted-id window (inclusive start)
@@ -102,6 +126,7 @@ def doubling_postfilter(
     stats=None,  # optional QueryStats; counters accumulate per source query
     stat_ids: Optional[np.ndarray] = None,  # [Q] source-query ids for stats
     q_rows: Optional[np.ndarray] = None,  # [Q] task -> row of queries_padded
+    mesh=None,  # parallel.sharded.Mesh: split each batch over its devices
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Batched beam-doubling postfilter query (ref: postfilter_vamana.h:141-188),
     the JAX package's schedule step for step.
@@ -138,7 +163,7 @@ def doubling_postfilter(
             queries_padded[rows_of(sel)], dtype=np.float32)).to(dev)
         st = torch.from_numpy(np.ascontiguousarray(starts[sel], dtype=np.int32)).to(dev)
         res = run_beam_batch(ps, graph, qs_dev, st, b, qp.limit, metric,
-                             degree_limit=_dl(qp, graph))
+                             degree_limit=_dl(qp, graph), mesh=mesh)
         if collect_stats:
             _collect(sel, np.arange(len(sel)), res)
         wl = torch.from_numpy(win_lo[sel].astype(np.int32)).to(dev)
@@ -280,6 +305,7 @@ class PostfilterVamanaIndex:
         self._ps = make_pointset(pts_sorted, metric, device=device)
         self._fp = cache_fingerprint(self._labels_sorted, pts_sorted)
         self._graph = self._load_or_build(bp, seed, require_cache)
+        self._mesh = None
         maybe_attach_inline(self._graph, self._ps)
 
     @classmethod
@@ -297,6 +323,7 @@ class PostfilterVamanaIndex:
         self._decoding = np.asarray(decoding, dtype=np.int64)
         self._graph = SlabGraph.from_nbrs(nbrs, device)
         self._start = int(start)
+        self._mesh = None
         maybe_attach_inline(self._graph, self._ps)
         return self
 
@@ -337,6 +364,16 @@ class PostfilterVamanaIndex:
             save_cached_nbrs(fname, g.nbrs_host, self._fp)
         return g
 
+    def shard(self, mesh) -> "PostfilterVamanaIndex":
+        """Split query batches over the devices of `mesh`
+        (parallel.sharded.make_mesh), the store and graph replicated on
+        each; its first device must hold the index. Searches then take the
+        plain batched_beam_search on every device (the inline blocks are
+        dropped), with the results of the unsharded plain search."""
+        replicate_index(self._ps, [self._graph], mesh)
+        self._mesh = mesh
+        return self
+
     def batch_search(
         self,
         queries: np.ndarray,
@@ -360,6 +397,6 @@ class PostfilterVamanaIndex:
         starts = np.full(num_queries, self._start, dtype=np.int32)
         ids, dists = doubling_postfilter(
             self._ps, self._graph, qp_pad, starts, win_lo, win_hi,
-            query_params, self._ps.metric, stats=stats)
+            query_params, self._ps.metric, stats=stats, mesh=self._mesh)
         return finalize_output(dists, ids, self._decoding, q_norms,
                                self._ps.metric, pad_id=-1)

@@ -17,10 +17,14 @@ batched Vamana build (models/vamana.py). The searches of a batch run one
 doubling_postfilter per routed row: on the card the beam kernel for rows
 that plan_row_inline gave int8 blocks, batched_beam_search for the rest.
 
-Not ported: the JAX package's mesh sharding (`shard`) and its device query
-cache keys (`_qkey`), and the `pad_rows` / `insert_pad` build options that
-let its rows share compiled shapes (models/vamana.py says why none is
-needed; a row cache either package saved loads into the other).
+`shard(mesh)` replicates the index over a mesh's devices and splits each
+row's searches over them, every search taking the plain
+batched_beam_search, as in the JAX package (parallel/sharded.py).
+
+Not ported: the JAX package's device query cache keys (`_qkey`), and the
+`pad_rows` / `insert_pad` build options that let its rows share compiled
+shapes (models/vamana.py says why none is needed; a row cache either
+package saved loads into the other).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 
 from .. import native
 from ..ops.topk import EMPTY_ID
+from ..parallel.sharded import replicate_index
 from ..params import (
     DEFAULT_CUTOFF,
     DEFAULT_SHIFT_FACTOR,
@@ -122,10 +127,22 @@ class SuperOptimizedPostfilterTree:
             for r, row in enumerate(self._rows)]
         self._res = RowResidency(self._graphs, device_rows_budget, self._ps.device)
         self._inline_attached: set = set()  # rows with inline blocks resident
+        self._mesh = None
 
     @property
     def device(self):
         return self._ps.device
+
+    def shard(self, mesh) -> "SuperOptimizedPostfilterTree":
+        """Query-shard over the devices of `mesh` (parallel.sharded.make_mesh),
+        the index replicated on each; its first device must hold the index.
+        The row residency is pinned, as the tree's shard() pins it."""
+        replicate_index(self._ps, self._graphs, mesh)
+        self._inline_attached.clear()  # replicate_index dropped the blocks
+        self._res.budget = None
+        self._res.order = []
+        self._mesh = mesh
+        return self
 
     # ------------------------------------------------------------------ build
     @staticmethod
@@ -221,9 +238,9 @@ class SuperOptimizedPostfilterTree:
         rows, buckets = self._route_batch(lo_idx, hi_idx)
 
         # int8 inline blocks for the batch's busiest rows (quantized scores
-        # are exact-reranked inside doubling_postfilter)
+        # are exact-reranked inside doubling_postfilter); none with a mesh
         urows, ucounts = np.unique(rows[rows >= 0], return_counts=True)
-        if len(urows):
+        if len(urows) and self._mesh is None:
             plan_row_inline(self._ps, self._graphs, self._inline_attached,
                             urows, ucounts)
 
@@ -236,6 +253,6 @@ class SuperOptimizedPostfilterTree:
             out_i[sel], out_d[sel] = doubling_postfilter(
                 self._ps, g, qpad, starts, lo_idx[sel].astype(np.int64),
                 hi_incl[sel].astype(np.int64), qp, self._ps.metric, stats=stats,
-                stat_ids=sel, q_rows=sel)
+                stat_ids=sel, q_rows=sel, mesh=self._mesh)
         return finalize_output(out_d, out_i, self._decoding, q_norms,
                                self._ps.metric, pad_id=0)

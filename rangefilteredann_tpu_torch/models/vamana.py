@@ -62,6 +62,8 @@ class SlabGraph:
     nbr_norms: Optional[torch.Tensor] = None  # [m, R] their ||x||^2
     nbr_scale: Optional[torch.Tensor] = None  # [m] dequant scales when nbr_vecs
     # is an int8 quantization of a float store (None = vectors are exact)
+    replicas: Optional[tuple] = None  # (nbrs_dev, slab_to_global_dev) as
+    # {device: tensor} over a mesh's devices (parallel.sharded.replicate_index)
 
     @classmethod
     def from_nbrs(cls, nbrs, device=None, slab_to_global=None,
@@ -136,6 +138,7 @@ class SlabGraph:
         self.nbr_vecs = None
         self.nbr_norms = None
         self.nbr_scale = None
+        self.replicas = None
 
     def device_bytes(self) -> int:
         """Device bytes of the adjacency, the slab map and inline blocks."""

@@ -12,7 +12,7 @@ numpy, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,8 @@ class PointSet:
       d: true dimensionality.
       metric: "l2" or "mips".
       norm_col: column of `data` holding ||x||^2 (float stores), else -1.
+      replicas: (data, norms_sq) as {device: tensor} over a mesh's devices,
+        set by parallel.sharded.replicate_index; None unreplicated.
     """
 
     data: torch.Tensor
@@ -89,6 +91,7 @@ class PointSet:
     d: int
     metric: str
     norm_col: int = -1
+    replicas: Optional[tuple] = None
 
     @property
     def d_pad(self) -> int:
