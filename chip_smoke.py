@@ -14,7 +14,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      every block's windows into several segments and log the grid, the beam search
      against ops/beam.beam_search_plain in both of its launch
      configurations, logged case by case, the scan variants v2, v3 and v3b of
-     tools/ against their plain versions at two (tile, qblock) shapes, v2's
+     tools/ against their plain versions at two (tile, qblock) shapes, v3b
+     also on windows that cut its blocks into several segments, v2's
      bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
      nested-loop probe against 6 x);
   4. the prefilter main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters,
@@ -642,7 +643,39 @@ def run_variant_cases(torch):
             note_err(errs, run, err)
         log(f"variant case {name} k={k}: {', '.join(n for n, _ in runs)} ok, "
             f"max|dd| so far {errs}")
+    run_v3b_split_case(torch)
     return errs
+
+
+def run_v3b_split_case(torch):
+    """v3b on windows that cut every block into several segments (the merge
+    kernel joins their lists) with more items than resident CTAs, on
+    grid-valued data, where every distance is exact: identical to the plain
+    version at each v3b setting of variant_runs, the grid logged."""
+    from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
+    from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
+
+    rng = np.random.default_rng(31)
+    n, nq = 300_000, 1024
+    pts, q = grid_values(rng, (n, D)), grid_values(rng, (nq, D))
+    s = rng.integers(0, n // 2, size=nq).astype(np.int32)
+    e = (s + rng.integers(n // 4, n // 2, size=nq)).astype(np.int32)
+    ps = make_pointset(pts, "l2", device="cuda")
+    a = (ps.data, ps.norms_sq, torch.from_numpy(pad_queries(q, D, ps.d_pad)).cuda(),
+         torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda())
+    plain = v3b.scan_v3b_plain(*a, K + 1, d_eff=D)
+    for name, fn in variant_runs("l2"):
+        if not name.startswith("v3b"):
+            continue
+        got = fn(*a, K, d_eff=D)
+        torch.cuda.synchronize()
+        compare_topk(got, plain, K, exact=True)
+        tile, qblock = fn.keywords["tile"], fn.keywords["qblock"]
+        g = v3b.grid(*a, K, tile=tile, d_eff=D, qblock=qblock)
+        if g["segs_max"] < 2 or g["items"] <= g["slots"]:
+            raise AssertionError(f"{name} did not split its blocks: {g}")
+        log(f"variant case v3b-split-grid-n{n}-q{nq} {name}: identical to the plain "
+            f"version; grid: {v3b.grid_note(g, tile)}")
 
 
 def grid_values(rng, shape):
@@ -2018,6 +2051,9 @@ def run_variant_path(torch, args, errs):
             f"bound {timed[name][2]:.4f} ms by {timed[name][3]} at the fp32 rate; best "
             f"{ms:.3f} ms; scan kernel {h.runs[prod_name][1]:.3f} ms")
     log(f"scan grid harness: {grid_note(scan_grid(torch, h2.args, {'k': HK, 'metric': 'l2', 'd_eff': HD}))}")
+    for tile, qblock in sorted({(t, b) for t, b, _ in v3b.CASES}):
+        g = v3b.grid(*h3b.args, HK, tile=tile, d_eff=HD, qblock=qblock)
+        log(f"scan_v3b grid harness T={tile} QB={qblock}: {v3b.grid_note(g, tile)}")
     for name, h, prefix in (("scan_v3", h3d, "v3 "), ("scan_v3b", h3bd, "v3b "),
                             ("scan_v2", h2d, "v2 ")):
         err, _, _ = harness_checks(torch, h, "prod", runs(h, prefix))

@@ -38,8 +38,9 @@ from ..utils.data import (METRIC_L2, METRIC_MIPS, PointSet, make_pointset,
                           pad_queries, resolve_device)
 
 # The kernels' caps for check_caps, which holds CPU and CUDA calls to them
-# alike. csrc/scan_variants.cuh compiles the same values in, and its
-# launcher returns -1 outside them (launch() raises on that).
+# alike. csrc/scan_variants.cuh (and scan_v3b.cu, with its own shared-memory
+# layout) compiles the same values in, and its launcher returns -1 outside
+# them (the launch raises on that).
 SUB = 256  # points per sub-tile: tiles are multiples of it
 DK = 16  # columns per staged chunk: d_eff is streamed rounded up to it
 GROUP = 128  # points per group-minima table entry
@@ -64,9 +65,11 @@ def smem_bytes(tile: int, qblock: int, k: int) -> int:
 
 
 def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
-               bf16: bool = False, unroll: int = 1, metric: str = METRIC_L2):
+               bf16: bool = False, unroll: int = 1, metric: str = METRIC_L2,
+               smem=smem_bytes):
     """Raise ValueError outside the variant kernels' caps, on any device:
-    nothing falls back."""
+    nothing falls back. smem(tile, qblock, k) sizes a CTA's shared memory
+    (v3b has a layout of its own, exp_scan3b.smem_bytes)."""
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the scan variants take CPU or CUDA tensors, got {data.device}")
     if metric not in (METRIC_L2, METRIC_MIPS):
@@ -79,10 +82,10 @@ def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
         raise ValueError(f"tile must be a multiple of {SUB} up to {MAX_TILE}, got {tile}")
     if qblock not in QBLOCKS or (bf16 and qblock < 16):
         raise ValueError(f"qblock must be one of {QBLOCKS} (bf16: 16 or 32), got {qblock}")
-    if smem_bytes(tile, qblock, k) > MAX_SMEM:
+    need = smem(tile, qblock, k)
+    if need > MAX_SMEM:
         raise ValueError(f"a [{qblock}, {tile}] block with k={k} takes "
-                         f"{smem_bytes(tile, qblock, k)} bytes of shared memory, "
-                         f"over {MAX_SMEM}")
+                         f"{need} bytes of shared memory, over {MAX_SMEM}")
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
 

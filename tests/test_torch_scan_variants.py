@@ -321,12 +321,16 @@ def test_harness_data_matches_the_jax_tools(jtools, monkeypatch, tool, flags):
 
 def test_kernel_sources_and_constants():
     """The variants' sources ship with the package, and the wrappers' caps
-    agree with the constants compiled into them."""
+    agree with the constants compiled into them: v2 and v3 share
+    scan_variants.cuh, v3b has a body of its own (its constants:
+    tests/test_torch_scan_v3b.py)."""
     hdr = (kernels.CSRC / "scan_variants.cuh").read_text()
     for name in ("scan_v2", "scan_v3", "scan_v3b"):
         assert name in kernels.SOURCES
-        assert '#include "scan_variants.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
+        shared = '#include "scan_variants.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
+        assert shared == (name != "scan_v3b"), name
     assert "probe_nested_while_launch" in (kernels.CSRC / "scan_v3b.cu").read_text()
+    assert "scan_v3b_config" in (kernels.CSRC / "scan_v3b.cu").read_text()
     for const, value in (("SUB", PT.SUB), ("DK", PT.DK), ("GROUP", PT.GROUP),
                          ("MAX_K", 256), ("MAX_SMEM", PT.MAX_SMEM)):
         assert f"constexpr int {const} = {value};" in hdr
@@ -337,8 +341,8 @@ def test_kernel_sources_and_constants():
 
 def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
     """A library's name changes with the headers its source includes and
-    with no other: an edit to scan_variants.cuh rebuilds the variants, not
-    the production scan."""
+    with no other: an edit to scan_variants.cuh rebuilds v2 and v3, not the
+    production scan nor v3b, whose body is its own."""
     for f in ("scan_topk.cu", "scan_v2.cu", "scan_v3b.cu", "scan_variants.cuh"):
         (tmp_path / f).write_bytes((kernels.CSRC / f).read_bytes())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
@@ -348,5 +352,8 @@ def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
     with open(tmp_path / "scan_variants.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: kernels.library_path(n) for n in names}
-    assert after["scan_topk"] == before["scan_topk"]
-    assert after["scan_v2"] != before["scan_v2"] and after["scan_v3b"] != before["scan_v3b"]
+    assert after["scan_topk"] == before["scan_topk"] and after["scan_v3b"] == before["scan_v3b"]
+    assert after["scan_v2"] != before["scan_v2"]
+    with open(tmp_path / "scan_v3b.cu", "a") as f:
+        f.write("// edited\n")
+    assert kernels.library_path("scan_v3b") != after["scan_v3b"]
