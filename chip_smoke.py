@@ -49,9 +49,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      inline blocks and a host breakdown (planning beside the phases), a
      profile of fenwick, and one of its beam-kernel launches against the
      plain version; then the super tree (SuperOptimizedPostfilterTree) at
-     bench.py's super configuration over the same data (cutoff 1000, split
-     2.0, shift 0.5, the same build; row 0 loaded from the graph's cache,
-     rows 1-8 built on the card) on the 2^-2 batch at beam 40 and beam 80,
+     bench.py's super configuration over the same data (split 2.0, shift
+     0.5, the same build; cutoff 6250 where bench.py has 1000, for the
+     run's time: the batch routes no window below row 2; row 0 loaded from
+     the graph's cache, rows 1-5 built on the card) on the 2^-2 batch at
+     beam 40 and beam 80,
      final_beam_multiply 2, each with the launch counts reset just before
      one call and read just after, recall@10 >= 0.99, best-of-2 wall, the
      routed rows, a host breakdown, and its largest beam-kernel launch
@@ -1637,6 +1639,10 @@ def run_prefilter_tree_path(torch, args, data):
 
 
 SUPER_SPLIT, SUPER_SHIFT = 2.0, 0.5  # bench.py:341-345
+# bench.py's cutoff is 1000 (rows 1-8 at 200k points); rows 6-8 (buckets of
+# 3,125 points and fewer, ~150 s of builds) are cut for the run's time:
+# the 2^-2 batch's windows of 50,000 points route to rows 1 and 2.
+SUPER_CUTOFF = 6250
 SUPER_BEAMS = (40, 80)  # bench.py:396-412, each at final_beam_multiply 2
 
 
@@ -1678,8 +1684,9 @@ def super_breakdown(torch, tree, queries, filters, qparams, nq):
 
 def run_super_tree_path(torch, args, cache, data, flat_nbrs):
     """The super tree at bench.py's super configuration over the graph
-    path's data (cutoff 1000, split 2.0, shift 0.5, R=48, L=100, alpha=1.2),
-    row 0 loaded from the graph's cache, rows 1-8 built on the card; then
+    path's data (cutoff SUPER_CUTOFF, split 2.0, shift 0.5, R=48, L=100,
+    alpha=1.2), row 0 loaded from the graph's cache, rows 1-5 built on the
+    card; then
     the 2^-2 batch at beam 40 and 80, x2, each with every kernel's launch
     count reset just before one call and read just after. Returns the beam
     kernel's launches over those calls."""
@@ -1696,14 +1703,14 @@ def run_super_tree_path(torch, args, cache, data, flat_nbrs):
     filters = batches["frac2^-2"]
     nq, n = len(queries), len(points)
     bp = tree_build_params(P, cache)
-    layout = spt.super_row_layout(n, TREE_CUTOFF, SUPER_SPLIT, SUPER_SHIFT)
+    layout = spt.super_row_layout(n, SUPER_CUTOFF, SUPER_SPLIT, SUPER_SHIFT)
     slabs = [int(spt.SuperOptimizedPostfilterTree._row_slab(n, *row)[0][-1])
              for row in layout]
     row_of = {m: r for r, m in enumerate(slabs)}  # slab points -> row
     t0 = time.time()
     with recorded_rows(torch, lambda off: row_of[int(off[-1])]) as (builds, loads):
         tree = P.SuperOptimizedPostfilterTree(
-            points, labels, cutoff=TREE_CUTOFF, split_factor=SUPER_SPLIT,
+            points, labels, cutoff=SUPER_CUTOFF, split_factor=SUPER_SPLIT,
             shift_factor=SUPER_SHIFT, build_params=bp)
     torch.cuda.synchronize()
     total = time.time() - t0
@@ -1713,7 +1720,7 @@ def run_super_tree_path(torch, args, cache, data, flat_nbrs):
         raise AssertionError(f"super row 0 did not load the graph's cache: loads {loads}, "
                              f"rows built {sorted(builds)}")
     log(f"super tree: SuperOptimizedPostfilterTree on {tree.device} ({len(layout)} rows, "
-        f"cutoff {TREE_CUTOFF}, split {SUPER_SPLIT}, shift {SUPER_SHIFT}, R=48, L=100, "
+        f"cutoff {SUPER_CUTOFF}, split {SUPER_SPLIT}, shift {SUPER_SHIFT}, R=48, L=100, "
         f"alpha=1.2, native router {native.available()}) in {total:.1f} s with the cache "
         f"writes; row 0 loaded from the graph's cache {os.path.basename(canon)}; rows built: "
         + ", ".join(f"row {r} ({layout[r][2]} buckets of {layout[r][0]}, slab {slabs[r]}) "

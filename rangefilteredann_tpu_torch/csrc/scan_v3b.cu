@@ -73,13 +73,10 @@
 //     round's block, which is written only after that round's last stage
 //     (a tile wider than a round is stored as one block a round, the
 //     partial one first), and then the loads wait for the extraction. Over
-//     a block of QB = 16 or 8 the ring is one stage deep. Every (qblock,
-//     tile, k) that fitted the earlier shared body fits here.
-//   * Where the time goes (exp_scan3b.py --split; PERF.md): the staging.
-//     With the extraction and the FMAs compiled out the kernel keeps ~60%
-//     of its time: every stage all 8 warps meet at one barrier, so the
-//     copies overlap the product less than several CTAs an SM would. The
-//     extraction takes 16-23% at the harness shape.
+//     a block of QB = 16 or 8 the ring is one stage deep, so at T = 2048
+//     QB = 16 no load overlaps an FMA; on the card 2 stages of 8 dims there
+//     ran slower than 1 of 16 (PERF.md). Every (qblock, tile, k) that
+//     fitted the earlier shared body fits here.
 // With a tile narrower than a round (tile < 8 W), warps past the tile's
 // points sit out the product.
 //
@@ -91,15 +88,6 @@
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
-
-// Timing probes (exp_scan3b.py --split), whose results are wrong: 0
-// compiles the extraction out (empty lists), or the FMAs (the loads stay).
-#ifndef SCAN_V3B_EXTRACT
-#define SCAN_V3B_EXTRACT 1
-#endif
-#ifndef SCAN_V3B_PRODUCT
-#define SCAN_V3B_PRODUCT 1
-#endif
 
 namespace {
 
@@ -450,7 +438,6 @@ __global__ void __launch_bounds__(THREADS, 1) v3b_items_kernel(const Args a) {
             for (int i = 0; i < PT; ++i) {
               const float4 b =
                   *reinterpret_cast<const float4*>(rs + PG * i * DK + ((h ^ swz) << 2));
-#if SCAN_V3B_PRODUCT
 #pragma unroll
               for (int j = 0; j < QT; ++j) {
                 acc[j][i] = fmaf(av[j].x, b.x, acc[j][i]);
@@ -458,9 +445,6 @@ __global__ void __launch_bounds__(THREADS, 1) v3b_items_kernel(const Args a) {
                 acc[j][i] = fmaf(av[j].z, b.z, acc[j][i]);
                 acc[j][i] = fmaf(av[j].w, b.w, acc[j][i]);
               }
-#else
-              acc[i % QT][i] += b.x + b.y + b.z + b.w + av[i % QT].x;
-#endif
             }
           }
         }
@@ -520,7 +504,6 @@ __global__ void __launch_bounds__(THREADS, 1) v3b_items_kernel(const Args a) {
       }
       __syncthreads();  // the tile's distances, table and bounds are in
 
-#if SCAN_V3B_EXTRACT
       // v3b's extraction, one warp a query
       for (int ql = warp; ql < QB; ql += WARPS) {
         const int q = q0 + ql;
@@ -565,7 +548,6 @@ __global__ void __launch_bounds__(THREADS, 1) v3b_items_kernel(const Args a) {
         }
         if (lane == 0 && ld[k - 1] < gk) atomic_min_float(a.kth + q, ld[k - 1]);
       }
-#endif
       __syncthreads();  // the tile has been read before the next one's epilogues
       if (!sep)  // the ring was under the tile: its loads go ahead now
         while (next < total && next < (ti + 1) * per_tile + S - 1) stage_next();

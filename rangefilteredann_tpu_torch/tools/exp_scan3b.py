@@ -16,23 +16,18 @@ A CPU tensor goes to the plain version (`scan_v3b_plain`,
 There is no fallback from one to the other.
 
     python -m rangefilteredann_tpu_torch.tools.exp_scan3b [--reps 10] [--n 200000]
-        [--nq 2048] [--dups] [--skip-probe] [--split] [--device cuda|cpu]
+        [--nq 2048] [--dups] [--skip-probe] [--device cuda|cpu]
 
 runs the probe, then times the production scan and v3b at the card's grid
 shapes and unroll counts, compares their ids and distances, and logs each
 v3b launch's grid (items, segments a block, CTAs an SM, registers, spills,
-shared memory, ring). --split also times builds with the extraction, and
-then the FMAs too, compiled out, in turns with the kernel, to show where
-the time goes.
+shared memory, ring).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import torch
 
@@ -288,64 +283,6 @@ def grid_note(g: dict, tile: int) -> str:
             f"{'beside the tile' if g['separate'] else 'under the tile'}")
 
 
-def probe_library(defines) -> ctypes.CDLL:
-    """csrc/scan_v3b.cu built with timing-probe defines for --split
-    (SCAN_V3B_EXTRACT=0: no extraction; SCAN_V3B_PRODUCT=0: no FMAs): the
-    same launches, wrong results."""
-    src = kernels.CSRC / "scan_v3b.cu"
-    flags = (*kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = kernels.BUILD_DIR / f"libscan_v3b_probe-{digest}.so"
-    if not lib.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        subprocess.run([kernels.nvcc_path(), *flags, "-o", str(tmp), str(src)], check=True)
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
-
-
-# --split's builds: the kernel, without the extraction, without the FMAs too
-SPLIT_BUILDS = {"kernel": None, "no extraction": ("SCAN_V3B_EXTRACT=0",),
-                "staging": ("SCAN_V3B_EXTRACT=0", "SCAN_V3B_PRODUCT=0")}
-
-
-def split_times(h, cases):
-    """Each case's time as built and with parts compiled out (SPLIT_BUILDS),
-    in turns (forward, then backward) on the harness's inputs, best of the
-    two: {case: {build: ms}}, logged with the extraction's share (kernel
-    less no extraction) and the product's (no extraction less staging)."""
-    dev = h.device
-    libs = {name: kernels.load("scan_v3b") if d is None else probe_library(d)
-            for name, d in SPLIT_BUILDS.items()}
-    out = {}
-    for tile, qblock, unroll in cases:
-        def run(name):
-            with torch.cuda.device(dev):
-                return launch(libs[name], *h.args, K, METRIC_L2, D, tile, qblock, unroll,
-                              torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
-
-        ms = {name: [] for name in libs}
-        for name in list(libs) + list(libs)[::-1]:
-            run(name)  # warm-up
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(h.reps):
-                run(name)
-            stop.record()
-            torch.cuda.synchronize(dev)
-            ms[name].append(start.elapsed_time(stop) / h.reps)
-        best = {name: min(v) for name, v in ms.items()}
-        full = best["kernel"]
-        log(f"v3b split T={tile} QB={qblock} U={unroll}: "
-            + ", ".join(f"{name} {best[name]:.3f} ms {ms[name]}" for name in libs)
-            + f"; extraction {(full - best['no extraction']) / full:.3f}, FMAs "
-            f"{(best['no extraction'] - best['staging']) / full:.3f}, staging, epilogue "
-            f"and the rest {best['staging'] / full:.3f} of the kernel")
-        out[(tile, qblock, unroll)] = best
-    return out
-
-
 def probe_nested_while_plain(x):
     """x summed in a 3 x 2 nested loop, in the kernel's order."""
     acc = torch.zeros_like(x)
@@ -401,8 +338,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dups", action="store_true")
     ap.add_argument("--skip-probe", action="store_true")
-    ap.add_argument("--split", action="store_true",
-                    help="also time builds with parts compiled out (card only)")
     args = main_args(ap, argv)
     if not args.skip_probe:
         probe_nested_while(args.device)
@@ -417,10 +352,6 @@ def main(argv=None):
         h.vs_prod(prod, out, name)
         if h.device.type == "cuda":
             log(f"  grid: {grid_note(grid(*h.args, K, tile=tile, d_eff=D, qblock=qblock), tile)}")
-    if args.split:
-        if h.device.type != "cuda":
-            raise SystemExit("--split times the kernel: it needs the card")
-        split_times(h, cases)
     return h
 
 
