@@ -15,8 +15,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      against ops/beam.beam_search_plain in both of its launch
      configurations, logged case by case, the scan variants v2, v3 and v3b of
      tools/ against their plain versions at two (tile, qblock) shapes, v3b
-     also on windows that cut its blocks into several segments, v2's
-     bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
+     and v2 (fp32 and bf16, k = 1, 10 and 256) also on windows that cut
+     their blocks into several segments, bit for bit on grid-valued data,
+     v2's bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
      nested-loop probe against 6 x);
   4. the prefilter main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters,
      noise 0.35, uniform labels, as bench.py makes its data): PrefilterIndex
@@ -76,6 +77,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the launch counts reset just before and read just after, then the
      --dups inputs; each variant against a float64 oracle, its plain
      version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
+     the grid of v3b and of v2 (fp32 and bf16) at the harness, and their
+     device time a call by kernel (torch.profiler) beside the CUDA events';
   9. the experiment layer (experiments/), in a temporary directory that is
      also the benchmark driver's working directory (it writes results/ and
      index_cache/ there): the adversarial set at the reference's scale
@@ -645,16 +648,20 @@ def run_variant_cases(torch):
             note_err(errs, run, err)
         log(f"variant case {name} k={k}: {', '.join(n for n, _ in runs)} ok, "
             f"max|dd| so far {errs}")
-    run_v3b_split_case(torch)
+    run_split_cases(torch)
     return errs
 
 
-def run_v3b_split_case(torch):
-    """v3b on windows that cut every block into several segments (the merge
-    kernel joins their lists) with more items than resident CTAs, on
-    grid-valued data, where every distance is exact: identical to the plain
-    version at each v3b setting of variant_runs, the grid logged."""
+def run_split_cases(torch):
+    """v3b and v2 on windows that cut every block into several segments (the
+    merge kernel joins their lists) with more items than resident CTAs, on
+    grid-valued data, where every distance is exact (and exact in bf16):
+    v3b at each of its settings of variant_runs, v2 in fp32 and in bf16 at
+    both shapes with k = 1, K and 256, each identical to its plain version,
+    the grid logged."""
+    from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
     from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
+    from rangefilteredann_tpu_torch.tools import scan_items
     from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
 
     rng = np.random.default_rng(31)
@@ -665,19 +672,26 @@ def run_v3b_split_case(torch):
     ps = make_pointset(pts, "l2", device="cuda")
     a = (ps.data, ps.norms_sq, torch.from_numpy(pad_queries(q, D, ps.d_pad)).cuda(),
          torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda())
-    plain = v3b.scan_v3b_plain(*a, K + 1, d_eff=D)
-    for name, fn in variant_runs("l2"):
-        if not name.startswith("v3b"):
-            continue
-        got = fn(*a, K, d_eff=D)
+    # (name, kernel call, k, bf16, its grid); v3b's plain version is v2's fp32 one
+    runs = [(name, fn, K, False, functools.partial(v3b.grid, tile=fn.keywords["tile"],
+                                                   qblock=fn.keywords["qblock"]))
+            for name, fn in variant_runs("l2") if name.startswith("v3b")]
+    for (t, b), bf16, k in itertools.product(variant_shapes(), (False, True), (1, K, 256)):
+        kw = dict(tile=t, qblock=b, bf16=bf16)
+        runs.append((f"v2 {'bf16' if bf16 else 'fp32'} T={t} QB={b}",
+                     functools.partial(v2.scan_v2, **kw), k, bf16, functools.partial(v2.grid, **kw)))
+    plains = {}
+    for name, fn, k, bf16, grid_fn in runs:
+        if (bf16, k) not in plains:
+            plains[bf16, k] = v2.scan_v2_plain(*a, k + 1, bf16=bf16, d_eff=D)
+        got = fn(*a, k, d_eff=D)
         torch.cuda.synchronize()
-        compare_topk(got, plain, K, exact=True)
-        tile, qblock = fn.keywords["tile"], fn.keywords["qblock"]
-        g = v3b.grid(*a, K, tile=tile, d_eff=D, qblock=qblock)
+        compare_topk(got, plains[bf16, k], k, exact=True)
+        g = grid_fn(*a, k, d_eff=D)
         if g["segs_max"] < 2 or g["items"] <= g["slots"]:
-            raise AssertionError(f"{name} did not split its blocks: {g}")
-        log(f"variant case v3b-split-grid-n{n}-q{nq} {name}: identical to the plain "
-            f"version; grid: {v3b.grid_note(g, tile)}")
+            raise AssertionError(f"{name} k={k} did not split its blocks: {g}")
+        log(f"variant case split-grid-n{n}-q{nq} {name} k={k}: identical to the plain "
+            f"version; grid: {scan_items.grid_note(g, grid_fn.keywords['tile'])}")
 
 
 def grid_values(rng, shape):
@@ -1971,11 +1985,11 @@ def run_variants_on_batch(torch, inputs, b1_ms, errs):
         log(f"prefilter 2^-2 batch [{a[2].shape[0]} queries x {a[0].shape[0]} rows] {name}: "
             f"{ms:.3f} ms (scan kernel {b1_ms:.3f} ms, {ms / b1_ms:.2f}x), == plain, "
             f"max|dd|={err:.3g}, near-ties excused={excused}")
-    t, b = variant_shapes()[0]
-    ms = cuda_time_ms(torch, lambda: scan_v2(*a, k, tile=t, bf16=True, d_eff=d_eff,
-                                             qblock=b), 3)
-    log(f"prefilter 2^-2 batch v2 bf16 T={t} QB={b}: {ms:.3f} ms (scan kernel "
-        f"{b1_ms:.3f} ms, {ms / b1_ms:.2f}x)")
+    for t, b in variant_shapes():
+        ms = cuda_time_ms(torch, lambda: scan_v2(*a, k, tile=t, bf16=True, d_eff=d_eff,
+                                                 qblock=b), 3)
+        log(f"prefilter 2^-2 batch v2 bf16 T={t} QB={b}: {ms:.3f} ms (scan kernel "
+            f"{b1_ms:.3f} ms, {ms / b1_ms:.2f}x)")
 
 
 def harness_checks(torch, h, prod_name, names, gt=None):
@@ -2015,6 +2029,7 @@ def run_variant_path(torch, args, errs):
     from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
     from rangefilteredann_tpu_torch.tools import exp_scan3 as v3
     from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
+    from rangefilteredann_tpu_torch.tools import scan_items
 
     argv = ["--n", str(args.variant_n), "--nq", str(args.variant_nq),
             "--reps", str(VARIANT_REPS)]
@@ -2060,7 +2075,37 @@ def run_variant_path(torch, args, errs):
     log(f"scan grid harness: {grid_note(scan_grid(torch, h2.args, {'k': HK, 'metric': 'l2', 'd_eff': HD}))}")
     for tile, qblock in sorted({(t, b) for t, b, _ in v3b.CASES}):
         g = v3b.grid(*h3b.args, HK, tile=tile, d_eff=HD, qblock=qblock)
-        log(f"scan_v3b grid harness T={tile} QB={qblock}: {v3b.grid_note(g, tile)}")
+        log(f"scan_v3b grid harness T={tile} QB={qblock}: {scan_items.grid_note(g, tile)}")
+    for (tile, qblock), bf16 in itertools.product(variant_shapes(), (False, True)):
+        g = v2.grid(*h2.args, HK, tile=tile, bf16=bf16, d_eff=HD, qblock=qblock)
+        log(f"scan_v2 grid harness T={tile} QB={qblock} {'bf16' if bf16 else 'fp32'}: "
+            f"{scan_items.grid_note(g, tile)}")
+    # device time a call, by kernel: the item kernel, the merge of item lists
+    # and the wrapper's own ops (midpoint sort, plan, scratch)
+    tile0, qb0 = variant_shapes()[0]
+    ids_k = v2.scan_v2(*h2.args, v2.RERANK_K, tile=tile0, bf16=True, d_eff=HD, qblock=qb0)[1]
+    profiled = [(f"v2 {'bf16' if bf16 else 'fp32'} T={t} QB={b}",
+                 functools.partial(v2.scan_v2, *h2.args, HK, tile=t, bf16=bf16, d_eff=HD, qblock=b))
+                for (t, b), bf16 in itertools.product(variant_shapes(), (False, True))]
+    profiled += [
+        ("v2 fp32 T=4096 QB=8", functools.partial(v2.scan_v2, *h2.args, HK, tile=4096, d_eff=HD,
+                                                  qblock=8)),
+        (f"v2 bf16 k'={v2.RERANK_K} T={tile0} QB={qb0}",
+         functools.partial(v2.scan_v2, *h2.args, v2.RERANK_K, tile=tile0, bf16=True, d_eff=HD,
+                           qblock=qb0)),
+        (f"rerank_fp32 k'={v2.RERANK_K}",
+         functools.partial(v2.rerank_fp32, h2.ps.data, h2.ps.norms_sq, h2.qp, ids_k, HK)),
+        (f"v3b T={tile0} QB={qb0} U=4", functools.partial(v3b.scan_v3b, *h2.args, HK, tile=tile0,
+                                                        d_eff=HD, qblock=qb0, unroll=4))]
+    for name, fn in profiled:
+        fn()
+        ms = cuda_time_ms(torch, fn, 10)
+        _, dev, rows = device_breakdown(torch, lambda: [fn() for _ in range(10)], top=1000)
+        part = {key: sum(t for op, t in rows if key in op) / 10 for key in ("items_kernel",
+                                                                             "merge_items")}
+        log(f"harness device {name}: {dev / 10:.4f} ms a call (item kernel "
+            f"{part['items_kernel']:.4f}, merge {part['merge_items']:.4f}, other ops "
+            f"{dev / 10 - sum(part.values()):.4f}); CUDA events {ms:.4f} ms a call")
     for name, h, prefix in (("scan_v3", h3d, "v3 "), ("scan_v3b", h3bd, "v3b "),
                             ("scan_v2", h2d, "v2 ")):
         err, _, _ = harness_checks(torch, h, "prod", runs(h, prefix))

@@ -70,12 +70,11 @@
 // Not done (later work, only if the measurements call for it):
 // error-compensated 3xTF32 on the tensor cores.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
-#include <math.h>
+#include "scan_common.cuh"
 
 namespace {
+
+using namespace scan_common;
 
 constexpr int QB = 32;                // queries per block
 constexpr int WARPS = 2;              // warps per CTA, side by side along the points
@@ -90,10 +89,6 @@ constexpr int STAGES = 2;             // cp.async ring
 constexpr int A_COPIES = QB * DK / 4 / THREADS;  // 16-byte query pieces a thread a stage
 constexpr int A_LD = DK + 4;          // floats per staged query row
 constexpr int LIST_SPLIT_K = 32;      // k above this shares one list per query
-constexpr int MAX_SEGS = 32;          // segments per block: one merge lane each
-constexpr int MAX_K = 256;
-constexpr int EMPTY_ID = 0x7fffffff;
-constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(TILE == WARPS * WPTS, "a tile is the warps' points side by side");
 static_assert(QB == 4 * QT, "a warp is 4 query groups x 8 point groups");
@@ -124,17 +119,6 @@ __host__ __device__ constexpr size_t smem_bytes(int k) {
          static_cast<size_t>(L) * QB * k * (sizeof(float) + sizeof(int)) + (2 * QB + 4) * sizeof(int);
 }
 
-__device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
-
-// *addr = min(*addr, v) for any two non-NaN floats: non-negative floats
-// order as ints, negative ones in reverse as unsigned.
-__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
-  if (v >= 0.f) atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-}
-
 // 4 dims of one staged row, widened to fp32. Bytes become exact floats by
 // placing them in the mantissa of 2^23 (int8 shifted by 128 first).
 __device__ __forceinline__ float4 widen_bytes(unsigned w, float offset) {
@@ -159,25 +143,6 @@ template <> struct Frag<uint8_t> {
     return widen_bytes(*reinterpret_cast<const unsigned*>(row + kk), 8388608.0f);
   }
 };
-
-// Asynchronous 16- and 4-byte copies into shared memory, holding no registers.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 struct ScanArgs {
   const void* data;
@@ -277,30 +242,8 @@ __device__ __forceinline__ void compute_stage(const unsigned char* st, float (&a
   }
 }
 
-// Insert (cd, ci) into one query's sorted list of k entries. Called by every
-// lane of the warp with the same candidate; the list lives in shared memory.
-__device__ __forceinline__ void warp_insert(float* ld, int* li, int k, float cd, int ci, int lane) {
-  if (!lex_less(cd, ci, ld[k - 1], li[k - 1])) return;  // warp-uniform
-  int cnt = 0;
-  for (int e = lane; e < k; e += 32) cnt += lex_less(ld[e], li[e], cd, ci);
-  const int pos = __reduce_add_sync(FULL, cnt);
-  // shift [pos, k-1) one place right, 32 entries at a time from the top, so
-  // each block's reads come before the writes of the block below it
-  for (int base = (k - 1) & ~31; base >= 0; base -= 32) {
-    const int e = base + lane;
-    const bool move = e < k && e > pos;
-    float pd = 0.f;
-    int pi = 0;
-    if (move) { pd = ld[e - 1]; pi = li[e - 1]; }
-    __syncwarp();
-    if (move) { ld[e] = pd; li[e] = pi; }
-    else if (e == pos) { ld[e] = cd; li[e] = ci; }
-    __syncwarp();
-  }
-}
-
-// The same for a list of k <= 32 entries, one a lane: one read of the
-// list, a ballot for the place, a shift by one lane.
+// warp_insert (scan_common.cuh) for a list of k <= 32 entries, one a lane:
+// one read of the list, a ballot for the place, a shift by one lane.
 __device__ __forceinline__ void warp_insert32(float* ld, int* li, int k, float cd, int ci,
                                               int lane) {
   const float d = lane < k ? ld[lane] : INFINITY;
@@ -542,56 +485,6 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM) scan_items_kernel(const 
   }
 }
 
-// One warp a query: merge the sorted lists of its block's items (at most
-// MAX_SEGS, one a lane) by (dist, id) into the caller's row.
-constexpr int MERGE_WARPS = 4;
-__global__ void __launch_bounds__(MERGE_WARPS * 32) merge_kernel(const ScanArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
-  if (q >= a.nq) return;  // the whole warp
-  const int k = a.k;
-  const int b = q / QB;
-  const int first = b > 0 ? a.prefix[b - 1] : 0;
-  const int n = a.prefix[b] - first;
-  const long long base = (static_cast<long long>(first + lane) * QB + q % QB) * k;
-  int h = 0;
-  float hd = INFINITY;
-  int hi = EMPTY_ID;
-  if (lane < n) {
-    hd = a.part_d[base];
-    hi = a.part_i[base];
-  }
-  const long long row = a.order[q] * k;
-  for (int e = 0; e < k; ++e) {
-    float bd = hd;
-    int bi = hi, bl = lane;
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      const float od = __shfl_xor_sync(FULL, bd, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      const int ol = __shfl_xor_sync(FULL, bl, off);
-      if (lex_less(od, oi, bd, bi) || (od == bd && oi == bi && ol < bl)) {
-        bd = od;
-        bi = oi;
-        bl = ol;
-      }
-    }
-    if (lane == 0) {
-      a.out_d[row + e] = bd;
-      a.out_i[row + e] = bi;
-    }
-    if (lane == bl && lane < n) {
-      if (++h < k) {
-        hd = a.part_d[base + h];
-        hi = a.part_i[base + h];
-      } else {
-        hd = INFINITY;
-        hi = EMPTY_ID;
-      }
-    }
-  }
-}
-
 struct Call {
   int dtype, metric_l2, k, grid;
   ScanArgs args;
@@ -626,7 +519,7 @@ int run(const Call& c) {
   kern<<<c.grid, THREADS, smem, c.stream>>>(c.args);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int merge_grid = (c.args.nq + MERGE_WARPS - 1) / MERGE_WARPS;
-  merge_kernel<<<merge_grid, MERGE_WARPS * 32, 0, c.stream>>>(c.args);
+  merge_items<QB, ScanArgs><<<merge_grid, MERGE_WARPS * 32, 0, c.stream>>>(c.args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,8 +69,8 @@ int scan_v3_launch(const void* data, long long n_rows, int d_pad,
                    const void* starts, const void* ends, int nq, int k,
                    int metric_l2, int n_real, int tile, int qblock,
                    void* out_d, void* out_i, void* stream) {
-  return launch_variant<ExtractV3, false>(
-      qblock, 0, data, n_rows, d_pad, d_stream, norms, queries, starts, ends,
+  return launch_variant<ExtractV3>(
+      qblock, data, n_rows, d_pad, d_stream, norms, queries, starts, ends,
       nq, k, metric_l2, n_real, tile, /*unroll=*/1, out_d, out_i, stream);
 }
 

@@ -2,9 +2,10 @@
 
 Each source `csrc/<name>.cu` has a plain C interface. nvcc compiles it for
 sm_90a into a shared library under `build/kernels/` at the repository root,
-named by a hash of the source, the `csrc/` headers it includes and the
-flags so that a stale build is never loaded, and ctypes loads it at first
-use. Nothing is built when a module is imported.
+named by a hash of the source, the `csrc/` headers it includes (directly
+or through another header) and the flags so that a stale build is never
+loaded, and ctypes loads it at first use. Nothing is built when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -38,10 +39,20 @@ def nvcc_path() -> str:
     return found
 
 
+def _with_includes(file: str, seen: set) -> bytes:
+    """csrc/<file> followed by every csrc/ header it includes with quotes,
+    directly or through another header, each once."""
+    seen.add(file)
+    src = (CSRC / file).read_bytes()
+    out = [src]
+    for h in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        if h.decode() not in seen:
+            out.append(_with_includes(h.decode(), seen))
+    return b"".join(out)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join((CSRC / h.decode()).read_bytes()
-                    for h in re.findall(rb'^#include "([^"]+)"', src, re.M))
+    src = _with_includes(f"{name}.cu", set())
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

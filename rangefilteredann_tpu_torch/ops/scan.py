@@ -25,17 +25,17 @@ from .bruteforce import scan_bruteforce
 # calls that took the plain version).
 SCAN_LAUNCHES = 0
 
-MAX_K = 256  # csrc/scan_topk.cu MAX_K
+MAX_K = 256  # csrc/scan_common.cuh MAX_K
 CHUNK = 16  # dims per staged chunk (csrc/scan_topk.cu DK)
 QB = 32  # queries per block (csrc/scan_topk.cu QB)
 TILE = 256  # points per tile (csrc/scan_topk.cu TILE)
-MAX_SEGS = 32  # segments per block at most (csrc/scan_topk.cu MAX_SEGS)
-# The segment rule: about ITEMS_PER_SLOT items for each resident CTA, so
-# that the last items end close together, and never under MIN_SEG_TILES
-# tiles (4,096 points: an item's list set-up, pipeline fill and write-out
+MAX_SEGS = 32  # segments per block at most (csrc/scan_common.cuh MAX_SEGS)
+# The segment rule of this kernel: about ITEMS_PER_SLOT items for each
+# resident CTA, so that the last items end close together, and never under
+# MIN_SEG_POINTS points (an item's list set-up, pipeline fill and write-out
 # stay a few percent of its product).
 ITEMS_PER_SLOT = 8
-MIN_SEG_TILES = 16
+MIN_SEG_POINTS = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 
 _bound: "dict[int, tuple]" = {}
@@ -74,19 +74,23 @@ def launch_config(lib, dtype_code: int, metric: str, k: int, device_index: int =
             "smem_bytes": smem, "lists": lists, "slots": per_sm * sms}
 
 
-def segment_plan(starts, ends, n_real: int, slots: int):
+def segment_plan(starts, ends, n_real: int, slots: int, *, qblock: int = QB,
+                 tile: int = TILE, items_per_slot: int = ITEMS_PER_SLOT,
+                 min_seg_points: int = MIN_SEG_POINTS):
     """Cut each block's union of windows into segments of whole tiles, and
-    order the items so that those reading the same rows run together.
+    order the items so that those reading the same rows run together. The
+    plan of every persistent scan kernel: this module's (the defaults) and
+    the variants' item body (tools/scan_items.py).
 
     starts/ends: [Q] int32 midpoint-sorted windows, on the device; blocks
-    are QB consecutive queries. Torch ops only, so nothing waits for the
-    device. Segments lie on one grid of `seg` tiles over the whole store, a
-    block's first and last clipped to its union, so every block covering a
-    grid segment reads the same rows; the items are handed out by grid
-    segment, then block. The segment length is the largest of
-    MIN_SEG_TILES, the share that gives about ITEMS_PER_SLOT items to each of
-    `slots` resident CTAs, and the length that keeps every block within
-    MAX_SEGS segments.
+    are `qblock` consecutive queries, tiles `tile` points. Torch ops only,
+    so nothing waits for the device. Segments lie on one grid of `seg` tiles
+    over the whole store, a block's first and last clipped to its union, so
+    every block covering a grid segment reads the same rows; the items are
+    handed out by grid segment, then block. The segment length is the
+    largest of ceil(min_seg_points / tile), the share that gives about
+    items_per_slot items to each of `slots` resident CTAs, and the length
+    that keeps every block within MAX_SEGS segments.
 
     Returns (tile_begin, tile_end, prefix, seg, item_code, max_items):
     tile_begin/tile_end [n_blocks] int32 the tiles of each block's union (0,
@@ -97,23 +101,24 @@ def segment_plan(starts, ends, n_real: int, slots: int):
     handed out, each block * MAX_SEGS + its segment (entries past
     prefix[-1] are unused); max_items a host bound on prefix[-1]."""
     q = starts.shape[0]
-    n_blocks = -(-q // QB)
-    pad = n_blocks * QB - q
+    n_blocks = -(-q // qblock)
+    pad = n_blocks * qblock - q
     s = starts.to(torch.int64).clamp(min=0)
     e = ends.to(torch.int64).clamp(max=n_real)
     if pad:
         zeros = torch.zeros(pad, dtype=torch.int64, device=s.device)
         s, e = torch.cat([s, zeros]), torch.cat([e, zeros])
-    nonempty = (e > s).view(n_blocks, QB)
-    lo = torch.where(nonempty, s.view(n_blocks, QB), n_real).amin(1)
-    hi = torch.where(nonempty, e.view(n_blocks, QB), 0).amax(1)
+    nonempty = (e > s).view(n_blocks, qblock)
+    lo = torch.where(nonempty, s.view(n_blocks, qblock), n_real).amin(1)
+    hi = torch.where(nonempty, e.view(n_blocks, qblock), 0).amax(1)
     has = nonempty.any(1)
-    tile_begin = torch.where(has, lo // TILE, 0)
-    tile_end = torch.where(has, (hi + TILE - 1) // TILE, 0)
+    tile_begin = torch.where(has, lo // tile, 0)
+    tile_end = torch.where(has, (hi + tile - 1) // tile, 0)
     tiles = tile_end - tile_begin
-    cap = ITEMS_PER_SLOT * slots
+    cap = items_per_slot * slots
     seg = torch.maximum((tiles.sum() + cap - 1) // cap,
-                        (tiles.max() + MAX_SEGS - 2) // (MAX_SEGS - 1)).clamp(min=MIN_SEG_TILES)
+                        (tiles.max() + MAX_SEGS - 2) // (MAX_SEGS - 1)).clamp(
+                            min=-(-min_seg_points // tile))
     # a block's grid segments: at most ceil(tiles / seg) + 1 <= MAX_SEGS, so
     # items <= sum(tiles) / seg + 2 n_blocks <= cap + 2 n_blocks
     first = tile_begin // seg

@@ -4,12 +4,13 @@ Counterpart of the JAX package's `tools/exp_scan2.py`, `exp_scan3.py` and
 `exp_scan3b.py`: three designs of the range-masked top-k scan, each a
 hand-written CUDA kernel (`csrc/scan_v2.cu`, `scan_v3.cu`, `scan_v3b.cu`)
 with its wrapper, its plain version and a `main()` in the module of
-the same name:
+the same name (v2 and v3b on one persistent item body, whose launch path
+is `scan_items.py`):
 
     python -m rangefilteredann_tpu_torch.tools.exp_scan2 [--reps 10] [--device cpu]
 
-This module holds what the three share: the kernels' caps, the launch
-around a ctypes-bound kernel, the plain version, the harness data (made
+This module holds what the three share: the kernels' caps, v3's launch
+around its ctypes-bound kernel, the plain version, the harness data (made
 exactly as the JAX tools make it), timing and the float64 oracle check.
 Each main() logs to stderr, as the JAX tools do; its "prod" baseline is the
 port's production scan (`ops/scan.scan_topk`).
@@ -38,9 +39,9 @@ from ..utils.data import (METRIC_L2, METRIC_MIPS, PointSet, make_pointset,
                           pad_queries, resolve_device)
 
 # The kernels' caps for check_caps, which holds CPU and CUDA calls to them
-# alike. csrc/scan_variants.cuh (and scan_v3b.cu, with its own shared-memory
-# layout) compiles the same values in, and its launcher returns -1 outside
-# them (the launch raises on that).
+# alike. csrc/scan_variants.cuh (v3) and scan_items.cuh (v2, v3b, with a
+# shared-memory layout of their own) compile the same values in, and their
+# launchers return -1 outside them (the launches raise on that).
 SUB = 256  # points per sub-tile: tiles are multiples of it
 DK = 16  # columns per staged chunk: d_eff is streamed rounded up to it
 GROUP = 128  # points per group-minima table entry
@@ -69,7 +70,7 @@ def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
                smem=smem_bytes):
     """Raise ValueError outside the variant kernels' caps, on any device:
     nothing falls back. smem(tile, qblock, k) sizes a CTA's shared memory
-    (v3b has a layout of its own, exp_scan3b.smem_bytes)."""
+    (v2 and v3b have a layout of their own, scan_items.smem_bytes)."""
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the scan variants take CPU or CUDA tensors, got {data.device}")
     if metric not in (METRIC_L2, METRIC_MIPS):

@@ -2,12 +2,14 @@
 
 Counterpart of the JAX package's tools/exp_scan2.py. `scan_v2` is the
 wrapper of csrc/scan_v2.cu (which replaces the Pallas kernel
-`_scan_kernel_v2`): one candidate at a time is taken from per-128-point
-group minima, and a tile is left as soon as its best no longer beats a
-query's k-th entry. L2 only. With bf16=True the query and the store are
-rounded to bf16 and the products accumulated in fp32 on the tensor cores,
-with the fp32 norms of the unrounded store: an approximate pass whose k'
-candidates `rerank_fp32` ranks again exactly.
+`_scan_kernel_v2`), on the persistent item body it shares with v3b
+(csrc/scan_items.cuh, launched through tools/scan_items.py): one candidate
+at a time is taken from per-128-point group minima, and a tile is left as
+soon as its best no longer beats a query's k-th entry. L2 only. With
+bf16=True the query and the store are rounded to bf16 and the products
+accumulated in fp32 on the tensor cores, with the fp32 norms of the
+unrounded store: an approximate pass whose k' candidates `rerank_fp32`
+ranks again exactly.
 
 A CPU tensor goes to the plain version `scan_v2_plain`; a CUDA tensor goes
 to the kernel or raises. There is no fallback from one to the other.
@@ -16,7 +18,9 @@ to the kernel or raises. There is no fallback from one to the other.
         [--nq 2048] [--device cuda|cpu]
 
 times the production scan and v2 at the card's grid shapes, fp32, then bf16
-alone and bf16 with k'=32 + rerank, each held against a float64 oracle.
+alone and bf16 with k'=32 + rerank, each held against a float64 oracle, and
+logs each fp32 launch's grid (items, segments a block, CTAs an SM,
+registers, spills, shared memory, ring).
 """
 
 from __future__ import annotations
@@ -25,24 +29,16 @@ import argparse
 
 import torch
 
+from .. import kernels
 from ..ops.scan import scan_topk
 from ..ops.topk import EMPTY_ID
 from ..utils.data import METRIC_L2
-from . import (D, GRIDS, K, bind, check_caps, main_args, launch,
-               make_harness, window_scan_plain)
+from . import D, GRIDS, K, check_caps, log, main_args, make_harness, window_scan_plain
+from . import scan_items as items
 
 # Kernel launches since the count was last set to 0.
 SCAN_V2_LAUNCHES = 0
 RERANK_K = 32  # k' of the bf16 pass before the fp32 rerank
-
-_launch_fn = None
-
-
-def _kernel():
-    global _launch_fn
-    if _launch_fn is None:
-        _launch_fn = bind("scan_v2", "scan_v2_launch", 5)
-    return _launch_fn
 
 
 def scan_v2_plain(data, norms_sq, queries, starts, ends, k, bf16=False,
@@ -60,14 +56,26 @@ def scan_v2(data, norms_sq, queries, starts, ends, k, tile=512, bf16=False,
     windows. Returns (dists [Q, k] f32, ids [Q, k] int32) in the caller's
     query order, (dist, id) ascending, empty slots (+inf, EMPTY_ID)."""
     global SCAN_V2_LAUNCHES
-    check_caps(data, k, tile, qblock, bf16=bf16)
+    check_caps(data, k, tile, qblock, bf16=bf16, smem=items.smem_bytes)
     if data.device.type == "cpu":
         return scan_v2_plain(data, norms_sq, queries, starts, ends, k, bf16, d_eff)
-    out = launch(_kernel(), "scan_v2", data, norms_sq, queries, starts, ends, k,
-                 d_eff, (k, data.shape[0], tile, qblock, int(bf16)))
-    if queries.shape[0]:
+    dev = data.device
+    with torch.cuda.device(dev):
+        out_d, out_i, plan = items.launch(
+            kernels.load("scan_v2"), "scan_v2", data, norms_sq, queries, starts, ends, k,
+            d_eff, tile, qblock, 1, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+            dev.index or 0)
+    if plan is not None:
         SCAN_V2_LAUNCHES += 1
-    return out
+    return out_d, out_i
+
+
+def grid(data, norms_sq, queries, starts, ends, k, tile=512, bf16=False, d_eff=None,
+         qblock=32):
+    """The grid a CUDA call of scan_v2 takes on these inputs
+    (tools/scan_items.grid). Launches nothing."""
+    return items.grid(kernels.load("scan_v2"), "scan_v2", data, norms_sq, queries, starts,
+                      ends, k, d_eff, tile, qblock, 1, int(bf16))
 
 
 def rerank_fp32(data, norms_sq, queries, cand_ids, k):
@@ -111,6 +119,9 @@ def main(argv=None):
         out, _ = h.timeit(name, lambda tile=tile, qblock=qblock: scan_v2(
             *h.args, K, tile=tile, d_eff=D, qblock=qblock))
         h.check(gt, out[1], name)
+        if h.device.type == "cuda":
+            g = grid(*h.args, K, tile=tile, d_eff=D, qblock=qblock)
+            log(f"  grid: {items.grid_note(g, tile)}")
     # bf16 + rerank at the first grid shape
     tile, qblock = grids[0]
     name = f"v2 insert bf16 QB={qblock} T={tile}"

@@ -76,7 +76,7 @@ def build(variants):
                 raise ValueError(f"{name}: substitution target not in the source: {old[:60]!r}")
             src = src.replace(old, new)
         (out / f"{name}.cu").write_text(src)
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", f"-I{kernels.CSRC}",
                "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)

@@ -256,10 +256,11 @@ def test_scan_topk_on_cpu_takes_the_plain_version():
 
 def test_kernel_sources_and_limits():
     """The kernel's source ships with the package, and the wrapper's limits
-    agree with the constants compiled into it."""
+    agree with the constants compiled into it (MAX_K from the helpers the
+    scan kernels share, csrc/scan_common.cuh)."""
     from rangefilteredann_tpu_torch import kernels
 
-    src = (kernels.CSRC / "scan_topk.cu").read_text()
+    src = "".join((kernels.CSRC / f).read_text() for f in ("scan_topk.cu", "scan_common.cuh"))
     assert "constexpr int MAX_K = %d;" % PS.MAX_K in src
     assert "constexpr int DK = %d;" % PS.CHUNK in src
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)

@@ -1,7 +1,8 @@
 """The scan kernel's own CUDA source, run on the CPU, against its plain version.
 
 csrc/scan_topk.cu runs only on the card, where no test runs. Here g++
-compiles it against tests/cuda_emu/cuda_runtime.h, which stands a thread in
+compiles it, with the csrc/ headers it includes (tests/cuda_emu/emulate.py),
+against tests/cuda_emu/cuda_runtime.h, which stands a thread in
 for each CUDA thread and meets a warp's collectives at a barrier. The
 persistent scan kernel's CTAs run all at once and share the work counter;
 the merge kernel's run one after another; cp.async copies are made at once.
@@ -21,12 +22,6 @@ earlier ones (a bound that dropped a tie at the k-th distance fails the
 dup16 split case there).
 """
 
-import re
-import shutil
-import subprocess
-import ctypes
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,38 +34,16 @@ from rangefilteredann_tpu_torch.ops import scan as PS
 from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
 from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
 
-EMU = Path(__file__).resolve().parent / "cuda_emu"
+from .cuda_emu import emulate
+
 EMU_SMS = 2  # tests/cuda_emu/cuda_runtime.h EMU_SMS, one CTA each
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The kernel's source built for the CPU, as a ctypes library."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is needed to build the emulated kernel")
-    src = (kernels.CSRC / "scan_topk.cu").read_text()
-    # the asynchronous copies copy at once, the waits find them done
-    for size in (16, 4):
-        src = re.sub(r'asm volatile\(\s*"cp\.async\.c[ag]\.shared\.global \[%0\], \[%1\], '
-                     + str(size) + r';".*?\);', f"std::memcpy(dst, src, {size});", src, flags=re.S)
-    src = re.sub(r"asm volatile\(.*?\);", "", src, flags=re.S)
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = emu_smem();")
-    src = src.replace("kern<<<c.grid, THREADS, smem, c.stream>>>(",
-                      "emu_launch_concurrent(kern, c.grid, THREADS, smem, c.stream, ")
-    src = src.replace("merge_kernel<<<merge_grid, MERGE_WARPS * 32, 0, c.stream>>>(",
-                      "emu_launch(merge_kernel, merge_grid, MERGE_WARPS * 32, 0, c.stream, ")
-    assert src.count("std::memcpy(dst, src, 16)") == 1 and src.count("std::memcpy(dst, src, 4)") == 1
-    assert "<<<" not in src and "asm" not in src
-    out = tmp_path_factory.mktemp("scan_emu")
-    (out / "scan_emu.cpp").write_text(src)
-    lib = out / "libscan_emu.so"
-    built = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                            f"-I{EMU}", "-o", str(lib), str(out / "scan_emu.cpp")],
-                           capture_output=True, text=True)
-    assert built.returncode == 0, built.stderr
-    return ctypes.CDLL(str(lib))
+    """The kernel's source (with the csrc/ headers it includes) built for
+    the CPU, as a ctypes library."""
+    return emulate.build("scan_topk", kernels.CSRC, tmp_path_factory.mktemp("scan_emu"))
 
 
 def _grid(rng, shape):
@@ -135,8 +108,8 @@ def test_emulated_kernel_matches_plain(emulated, name, order, monkeypatch):
     if order == "reversed":
         plan = PS.segment_plan
 
-        def reversed_plan(*args):
-            tb, te, prefix, seg, code, cap = plan(*args)
+        def reversed_plan(*args, **kw):
+            tb, te, prefix, seg, code, cap = plan(*args, **kw)
             n = int(prefix[-1])
             code = torch.cat([code[:n].flip(0), code[n:]])
             return tb, te, prefix, seg, code, cap

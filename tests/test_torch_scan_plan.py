@@ -2,10 +2,12 @@
 
 The kernel's wrapper cuts each block of 32 midpoint-sorted queries' union of
 windows into segments of whole tiles, one work item each, by torch ops on
-the device. These tests hold the plan to what the kernel relies on: every
-block's union tile range covered exactly once, no item for a block of empty
-windows, at most MAX_SEGS segments a block, and an item count within the
-scratch bound the wrapper allocates. Then the merge: the per-segment top-k
+the device. These tests hold the plan, at its defaults (the production
+scan's), to what the kernel relies on: every block's union tile range
+covered exactly once, no item for a block of empty windows, at most
+MAX_SEGS segments a block, and an item count within the scratch bound the
+wrapper allocates (tests/test_torch_scan_v3b.py holds the same function at
+the item body's parameters, v2's and v3b's). Then the merge: the per-segment top-k
 lists, merged by (dist, id), equal the whole scan bit for bit, so the
 result cannot depend on the segmentation. The whole scan is the JAX
 package's scan_bruteforce on the same inputs; values on the grid j/8 make
@@ -77,7 +79,7 @@ def test_segment_plan_covers_each_union_once(name):
     plan = PS.segment_plan(starts, ends, n, slots)
     tile_begin, tile_end, prefix, seg, item_code, max_items = plan
     assert all(t.dtype == torch.int32 for t in (tile_begin, tile_end, prefix, seg, item_code))
-    assert int(seg[0]) >= PS.MIN_SEG_TILES
+    assert int(seg[0]) * PS.TILE >= PS.MIN_SEG_POINTS
     assert int(prefix[-1]) <= max_items
     per_block, order = _items(plan)
     # every (block, segment) handed out once, by grid segment, then block
@@ -152,8 +154,8 @@ def test_merged_segment_scans_equal_the_whole_scan():
 
 def test_plan_constants_match_the_kernel():
     """The wrapper's plan uses the kernel's block, tile, chunk and segment
-    caps."""
-    src = (kernels.CSRC / "scan_topk.cu").read_text()
+    caps (the last two from the helpers it includes)."""
+    src = "".join((kernels.CSRC / f).read_text() for f in ("scan_topk.cu", "scan_common.cuh"))
     for name, value in (("QB", PS.QB), ("TILE", PS.TILE), ("DK", PS.CHUNK),
                         ("MAX_SEGS", PS.MAX_SEGS), ("MAX_K", PS.MAX_K)):
         assert f"constexpr int {name} = {value};" in src

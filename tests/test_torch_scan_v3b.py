@@ -2,8 +2,9 @@
 
 csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
 
-* its segment plan (tools/exp_scan3b.segment_plan) is held to what the
-  kernel relies on, at the three GRIDS (tile, qblock) shapes over random and
+* its segment plan (ops/scan.segment_plan at the item body's parameters,
+  tools/scan_items.plan, which v2 shares) is held to what the kernel
+  relies on, at the three GRIDS (tile, qblock) shapes over random and
   degenerate windows: every block's window union covered by whole tiles
   exactly once, no item for a block of empty windows, at most MAX_SEGS
   segments a block, and an item count within the scratch bound;
@@ -11,11 +12,12 @@ csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
   (dist, id) (ops/topk.merge_topk, the merge kernel's twin in these tests
   only), equals the plain scan of the whole window, on the harness's
   --dups data, where ties decide the order;
-* the kernel's own source, compiled by g++ against tests/cuda_emu/
-  cuda_runtime.h (a std::thread per CUDA thread, barriers for a warp's
-  collectives, cp.async copies made at once), through the wrapper's own
-  launch (tools/exp_scan3b.launch: the midpoint sort, the plan, the
-  scratch, the ctypes call) on CPU tensors. On grid-valued data (values
+* the kernel's own source with the headers it includes (the item body
+  csrc/scan_items.cuh, csrc/scan_common.cuh), compiled by g++ against
+  tests/cuda_emu/cuda_runtime.h (a std::thread per CUDA thread, barriers
+  for a warp's collectives, cp.async copies made at once), through the
+  wrapper's own launch (tools/scan_items.launch: the midpoint sort, the
+  plan, the scratch, the ctypes call) on CPU tensors. On grid-valued data (values
   j/8) every distance is exact in float32 in any summation order, so ids
   and distances must equal, bit for bit, the port's and the JAX package's
   scan_bruteforce: each qblock, both metrics, k from 1 to 256, ties, rings
@@ -28,11 +30,7 @@ csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
   admits every (tile, qblock, k) that the variants' shared body admitted.
 """
 
-import re
-import shutil
-import subprocess
 import ctypes
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,12 +41,15 @@ from rangefilteredann_tpu.ops import bruteforce as JB
 from rangefilteredann_tpu.utils.data import make_pointset as j_make_pointset
 from rangefilteredann_tpu_torch import kernels
 from rangefilteredann_tpu_torch import tools as PT
+from rangefilteredann_tpu_torch.ops import scan as PS
 from rangefilteredann_tpu_torch.ops.bruteforce import scan_bruteforce
 from rangefilteredann_tpu_torch.ops.topk import EMPTY_ID, merge_topk
-from rangefilteredann_tpu_torch.tools import exp_scan3b as V
+from rangefilteredann_tpu_torch.tools import exp_scan3b as P3B
+from rangefilteredann_tpu_torch.tools import scan_items as I
 from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
 
-EMU = Path(__file__).resolve().parent / "cuda_emu"
+from .cuda_emu import emulate
+
 EMU_SMS = 2  # tests/cuda_emu/cuda_runtime.h EMU_SMS, one CTA each
 
 
@@ -64,35 +65,9 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The kernel's source built for the CPU, as a ctypes library."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is needed to build the emulated kernel")
-    src = (kernels.CSRC / "scan_v3b.cu").read_text()
-    # the asynchronous copies copy at once, the waits find them done
-    src = re.sub(r'asm volatile\(\s*"cp\.async\.cg\.shared\.global \[%0\], \[%1\], 16;".*?\);',
-                 "std::memcpy(dst, src, 16);", src, flags=re.S)
-    src = re.sub(r"asm volatile\(.*?\);", "", src, flags=re.S)
-    src = src.replace("__ldcg(", "__ldg(").replace("blockIdx.x * blockDim.x", "blockIdx.x * 256")
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = emu_smem();")
-    src = src.replace("kern<<<c.grid, THREADS, smem, c.stream>>>(",
-                      "emu_launch_concurrent(kern, c.grid, THREADS, smem, c.stream, ")
-    src = src.replace("merge_kernel<<<merge_grid, MERGE_WARPS * 32, 0, c.stream>>>(",
-                      "emu_launch(merge_kernel, merge_grid, MERGE_WARPS * 32, 0, c.stream, ")
-    src = re.sub(r"probe_nested_while_kernel<<<(.*?), (.*?), 0,\s*"
-                 r"static_cast<cudaStream_t>\(stream\)>>>\(",
-                 r"emu_launch(probe_nested_while_kernel, \1, \2, 0, stream, ", src, flags=re.S)
-    assert src.count("std::memcpy(dst, src, 16)") == 1
-    assert "<<<" not in src and "asm" not in src
-    out = tmp_path_factory.mktemp("scan_v3b_emu")
-    (out / "scan_v3b_emu.cpp").write_text(src)
-    lib = out / "libscan_v3b_emu.so"
-    built = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                            f"-I{EMU}", "-o", str(lib), str(out / "scan_v3b_emu.cpp")],
-                           capture_output=True, text=True)
-    assert built.returncode == 0, built.stderr
-    return ctypes.CDLL(str(lib))
+    """The kernel's source (with the csrc/ headers it includes) built for
+    the CPU, as a ctypes library."""
+    return emulate.build("scan_v3b", kernels.CSRC, tmp_path_factory.mktemp("scan_v3b_emu"))
 
 
 def _grid(rng, shape):
@@ -155,20 +130,20 @@ def _case(name):
 @pytest.mark.parametrize("name,order", ORDERS)
 def test_emulated_kernel_matches_plain(emulated, name, order, monkeypatch):
     if order == "reversed":
-        plan = V.segment_plan
+        plan = PS.segment_plan
 
-        def reversed_plan(*args):
-            tb, te, prefix, seg, code, cap = plan(*args)
+        def reversed_plan(*args, **kw):
+            tb, te, prefix, seg, code, cap = plan(*args, **kw)
             n = int(prefix[-1])
             return tb, te, prefix, seg, torch.cat([code[:n].flip(0), code[n:]]), cap
 
-        monkeypatch.setattr(V, "segment_plan", reversed_plan)
+        monkeypatch.setattr(PS, "segment_plan", reversed_plan)
     pts, q, s, e, k, metric, tile, qblock, unroll = _case(name)
     ps = make_pointset(pts, metric, device="cpu")
     qp = torch.from_numpy(pad_queries(q, pts.shape[1], ps.d_pad))
     st, en = torch.from_numpy(s), torch.from_numpy(e)
-    got_d, got_i, plan = V.launch(emulated, ps.data, ps.norms_sq, qp, st, en, k, metric,
-                                  ps.norm_col, tile, qblock, unroll, None)
+    got_d, got_i, plan = I.launch(emulated, "scan_v3b", ps.data, ps.norms_sq, qp, st, en, k,
+                                  ps.norm_col, tile, qblock, int(metric == "l2"), unroll, None)
     want_d, want_i = scan_bruteforce(ps.data, ps.norms_sq, qp, st, en, k, metric)
     np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
     np.testing.assert_array_equal(got_d.numpy(), want_d.numpy())
@@ -183,7 +158,7 @@ def test_emulated_kernel_matches_plain(emulated, name, order, monkeypatch):
     assert int(prefix[-1]) <= max_items
     if "split" in name:  # blocks cut into several segments, more items than CTAs
         assert int(seg[0]) < int((tile_end - tile_begin).max()) and int(prefix[-1]) > EMU_SMS
-    cfg = V.launch_config(emulated, qblock, tile, k, metric)
+    cfg = I.launch_config(emulated, "scan_v3b", qblock, tile, k, int(metric == "l2"), unroll)
     assert (cfg["stages"], cfg["separate"]) == MODES.get(name, (cfg["stages"], cfg["separate"]))
 
 
@@ -191,19 +166,19 @@ def test_emulated_config_matches_the_layout(emulated):
     """scan_v3b_config reports the layout the wrapper's caps compute, and
     refuses exactly what they refuse."""
     out = (ctypes.c_int * 8)()
-    fn = V.bind(emulated)[1]
+    fn = I.bind(emulated, "scan_v3b")[1]
     for qblock in (8, 16, 32):
         for tile in range(256, 4097, 256):
             for k in (1, 10, 100, 256):
-                rc = fn(qblock, tile, k, 1, out)
-                lay = V.layout(tile, qblock, k)
+                rc = fn(qblock, tile, k, 1, 1, out)
+                lay = I.layout(tile, qblock, k)
                 if lay["total"] > PT.MAX_SMEM:
                     assert rc == -1, (qblock, tile, k)
                     continue
                 assert rc == 0, (qblock, tile, k)
                 assert (out[4], out[6], out[7]) == (lay["total"], lay["stages"],
                                                     lay["separate"]), (qblock, tile, k)
-    assert fn(12, 1024, 10, 1, out) == -1 and fn(16, 640, 10, 1, out) == -1
+    assert fn(12, 1024, 10, 1, 1, out) == -1 and fn(16, 640, 10, 1, 1, out) == -1
 
 
 def test_caps_no_narrower_than_the_shared_body():
@@ -213,19 +188,22 @@ def test_caps_no_narrower_than_the_shared_body():
         for tile in range(PT.SUB, PT.MAX_TILE + 1, PT.SUB):
             for k in range(1, 257):
                 if PT.smem_bytes(tile, qblock, k) <= PT.MAX_SMEM:
-                    assert V.smem_bytes(tile, qblock, k) <= PT.MAX_SMEM, (tile, qblock, k)
+                    assert I.smem_bytes(tile, qblock, k) <= PT.MAX_SMEM, (tile, qblock, k)
 
 
 def test_kernel_constants_match_the_wrapper():
-    src = (kernels.CSRC / "scan_v3b.cu").read_text()
-    for name, value in (("WARPS", V.WARPS), ("QT", V.QT), ("PT", V.PT),
-                        ("MAX_STAGES", V.MAX_STAGES), ("GROUP", PT.GROUP),
-                        ("MAX_SEGS", V.MAX_SEGS), ("MAX_K", 256), ("MAX_SMEM", PT.MAX_SMEM),
+    """The item body's constants (csrc/scan_items.cuh and the helpers it
+    includes) are the wrappers', and v3b runs on that body, not on v3's."""
+    src = "".join((kernels.CSRC / f).read_text() for f in ("scan_items.cuh", "scan_common.cuh"))
+    for name, value in (("WARPS", I.WARPS), ("QT", I.QT), ("PT", I.PT),
+                        ("MAX_STAGES", I.MAX_STAGES), ("GROUP", PT.GROUP),
+                        ("MAX_SEGS", PS.MAX_SEGS), ("MAX_K", 256), ("MAX_SMEM", PT.MAX_SMEM),
                         ("TILE_STEP", PT.SUB)):
         assert f"constexpr int {name} = {value};" in src
     assert "int stage_dims(int qb) { return qb >= 16 ? 16 : 8; }" in src
-    assert [V.stage_dims(qb) for qb in PT.QBLOCKS] == [8, 16, 16]
-    assert '#include "scan_variants.cuh"' not in src  # a body of its own
+    assert [I.stage_dims(qb) for qb in PT.QBLOCKS] == [8, 16, 16]
+    v3b = (kernels.CSRC / "scan_v3b.cu").read_text()
+    assert '#include "scan_items.cuh"' in v3b and '#include "scan_variants.cuh"' not in v3b
 
 
 def _plan_windows(rng, n, nq, kind):
@@ -262,7 +240,7 @@ def _items(plan, qblock):
         per_block.append([(max((g + j) * seg, tb), min((g + j + 1) * seg, te))
                           for j in range(int(prefix[b]) - first)])
         first = int(prefix[b])
-    order = [divmod(int(c), V.MAX_SEGS) for c in item_code[:first]]
+    order = [divmod(int(c), PS.MAX_SEGS) for c in item_code[:first]]
     return per_block, order
 
 
@@ -272,10 +250,10 @@ def test_segment_plan_covers_each_union_once(tile, qblock, kind):
     n, nq, slots = 200_000, 2048, 132
     rng = np.random.default_rng(tile + qblock)
     starts, ends = _plan_windows(rng, n, nq, kind)
-    plan = V.segment_plan(starts, ends, n, slots, qblock, tile)
+    plan = I.plan(starts, ends, n, slots, qblock, tile)
     tile_begin, tile_end, prefix, seg, item_code, max_items = plan
     assert all(t.dtype == torch.int32 for t in (tile_begin, tile_end, prefix, seg, item_code))
-    assert int(seg[0]) * tile >= V.MIN_SEG_POINTS
+    assert int(seg[0]) * tile >= I.MIN_SEG_POINTS
     assert int(prefix[-1]) <= max_items
     per_block, order = _items(plan, qblock)
     assert len(per_block) == -(-nq // qblock)
@@ -290,7 +268,7 @@ def test_segment_plan_covers_each_union_once(tile, qblock, kind):
     for b, items in enumerate(per_block):
         bs, be = s[b * qblock:(b + 1) * qblock], e[b * qblock:(b + 1) * qblock]
         live = be > bs
-        assert len(items) <= V.MAX_SEGS
+        assert len(items) <= PS.MAX_SEGS
         if not live.any():
             assert items == []
             empty_blocks += 1
@@ -320,7 +298,7 @@ def test_merged_segment_lists_equal_the_whole_scan(tile, qblock):
     order = np.argsort(s.astype(np.int64) + e, kind="stable")
     st, en = torch.from_numpy(s[order]), torch.from_numpy(e[order])
     qs = qp[torch.from_numpy(order)]
-    plan = V.segment_plan(st, en, n, 2, qblock, tile)
+    plan = I.plan(st, en, n, 2, qblock, tile)
     items = _items(plan, qblock)[0]
     assert max(map(len, items)) > 1
     got_d = torch.full((nq, k), float("inf"))
@@ -328,10 +306,10 @@ def test_merged_segment_lists_equal_the_whole_scan(tile, qblock):
     for b, segs in enumerate(items):
         rows = slice(b * qblock, min((b + 1) * qblock, nq))
         for t0, t1 in segs:
-            d_, i_ = V.scan_v3b_plain(ps.data, ps.norms_sq, qs[rows],
+            d_, i_ = P3B.scan_v3b_plain(ps.data, ps.norms_sq, qs[rows],
                                       st[rows].clamp(min=t0 * tile),
                                       en[rows].clamp(max=t1 * tile), k, d_eff=PT.D)
             got_d[rows], got_i[rows] = merge_topk(got_d[rows], got_i[rows], d_, i_, k)
-    want_d, want_i = V.scan_v3b_plain(ps.data, ps.norms_sq, qs, st, en, k, d_eff=PT.D)
+    want_d, want_i = P3B.scan_v3b_plain(ps.data, ps.norms_sq, qs, st, en, k, d_eff=PT.D)
     assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
     assert (want_i[:, 0] != EMPTY_ID).sum() >= nq - 4  # only the degenerate few lack a point

@@ -11,6 +11,7 @@ must match bit for bit.
 """
 
 import importlib.util
+import re
 import pathlib
 import sys
 from unittest import mock
@@ -321,39 +322,108 @@ def test_harness_data_matches_the_jax_tools(jtools, monkeypatch, tool, flags):
 
 def test_kernel_sources_and_constants():
     """The variants' sources ship with the package, and the wrappers' caps
-    agree with the constants compiled into them: v2 and v3 share
-    scan_variants.cuh, v3b has a body of its own (its constants:
-    tests/test_torch_scan_v3b.py)."""
+    agree with the constants compiled into them: only v3 includes
+    scan_variants.cuh; v2 and v3b run on the persistent item body
+    scan_items.cuh (its constants: tests/test_torch_scan_v3b.py); and each
+    helper the scan kernels share is defined once among their sources, in
+    scan_common.cuh (the beam search, csrc/beam_search.cu, keeps its own
+    copy helpers)."""
     hdr = (kernels.CSRC / "scan_variants.cuh").read_text()
+    common = (kernels.CSRC / "scan_common.cuh").read_text()
     for name in ("scan_v2", "scan_v3", "scan_v3b"):
         assert name in kernels.SOURCES
-        shared = '#include "scan_variants.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
-        assert shared == (name != "scan_v3b"), name
+        src = (kernels.CSRC / f"{name}.cu").read_text()
+        assert ('#include "scan_variants.cuh"' in src) == (name == "scan_v3"), name
+        assert ('#include "scan_items.cuh"' in src) == (name != "scan_v3"), name
     assert "probe_nested_while_launch" in (kernels.CSRC / "scan_v3b.cu").read_text()
     assert "scan_v3b_config" in (kernels.CSRC / "scan_v3b.cu").read_text()
+    assert "scan_v2_config" in (kernels.CSRC / "scan_v2.cu").read_text()
     for const, value in (("SUB", PT.SUB), ("DK", PT.DK), ("GROUP", PT.GROUP),
-                         ("MAX_K", 256), ("MAX_SMEM", PT.MAX_SMEM)):
+                         ("MAX_SMEM", PT.MAX_SMEM)):
         assert f"constexpr int {const} = {value};" in hdr
+    assert "constexpr int MAX_K = 256;" in common
     assert PT.MAX_TILE == 32 * PT.GROUP and PT.smem_bytes(1024, 32, 256) <= PT.MAX_SMEM
     assert "(size_t)qb * tile * 4 + (size_t)qb * k * 8" in hdr
     assert "(size_t)(DK * qb + SUB * (DK + 1)) * 4" in hdr
+    sources = {f.name: f.read_text() for f in sorted(kernels.CSRC.glob("scan_*.cu*"))}
+    assert len(sources) == 7
+    for helper in (r"bool lex_less\(", r"void atomic_min_float\(", r"void warp_argmin\(",
+                   r"void warp_insert\(", r"unsigned smem_u32\(", r"void copy16\(",
+                   r"void copy4\(", r"void copy_commit\(", r"void copy_wait\(",
+                   r"__global__ void __launch_bounds__\(MERGE_WARPS \* 32\) merge_"):
+        where = {f: len(re.findall(helper, text)) for f, text in sources.items()}
+        where = {f: n for f, n in where.items() if n}
+        assert list(where) == ["scan_common.cuh"], (helper, where)
+
+
+def _copy_sources(tmp_path, monkeypatch):
+    for f in kernels.CSRC.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
 
 
 def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
     """A library's name changes with the headers its source includes and
-    with no other: an edit to scan_variants.cuh rebuilds v2 and v3, not the
-    production scan nor v3b, whose body is its own."""
-    for f in ("scan_topk.cu", "scan_v2.cu", "scan_v3b.cu", "scan_variants.cuh"):
-        (tmp_path / f).write_bytes((kernels.CSRC / f).read_bytes())
-    monkeypatch.setattr(kernels, "CSRC", tmp_path)
-    names = ("scan_topk", "scan_v2", "scan_v3b")
+    with no other: an edit to scan_variants.cuh renames v3's build only; an
+    edit to the shared helpers (scan_common.cuh) renames the builds of the
+    production scan, v2, v3 and v3b, not the beam search's."""
+    _copy_sources(tmp_path, monkeypatch)
+    names = kernels.SOURCES
     before = {n: kernels.library_path(n) for n in names}
-    assert len(set(before.values())) == 3
+    assert len(set(before.values())) == len(names)
     with open(tmp_path / "scan_variants.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: kernels.library_path(n) for n in names}
-    assert after["scan_topk"] == before["scan_topk"] and after["scan_v3b"] == before["scan_v3b"]
-    assert after["scan_v2"] != before["scan_v2"]
+    assert [n for n in names if after[n] != before[n]] == ["scan_v3"]
+    with open(tmp_path / "scan_common.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {n: kernels.library_path(n) for n in names}
+    assert [n for n in names if again[n] != after[n]] == [
+        "scan_topk", "scan_v2", "scan_v3", "scan_v3b"]
     with open(tmp_path / "scan_v3b.cu", "a") as f:
         f.write("// edited\n")
-    assert kernels.library_path("scan_v3b") != after["scan_v3b"]
+    assert kernels.library_path("scan_v3b") != again["scan_v3b"]
+
+
+def test_build_hash_follows_includes_through_headers(tmp_path, monkeypatch):
+    """A header included only through another header is in the hash:
+    scan_v2.cu reaches scan_common.cuh only through scan_items.cuh, and an
+    edit to it renames v2's build; includes that form a cycle are read
+    once each."""
+    _copy_sources(tmp_path, monkeypatch)
+    assert '#include "scan_common.cuh"' not in (tmp_path / "scan_v2.cu").read_text()
+    assert '#include "scan_common.cuh"' in (tmp_path / "scan_items.cuh").read_text()
+    before = kernels.library_path("scan_v2")
+    with open(tmp_path / "scan_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert kernels.library_path("scan_v2") != before
+    (tmp_path / "loop.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#include "a.cuh"\n// b\n')
+    first = kernels.library_path("loop")
+    (tmp_path / "b.cuh").write_text('#include "a.cuh"\n// b, edited\n')
+    assert kernels.library_path("loop") != first
+
+
+def test_ab_tool_reads_ptxas_and_names_kernels_alike(tmp_path):
+    """tools/ab.py, which compares two trees' builds on the card, names a
+    kernel the same in both trees (the anonymous namespace's per-file hash
+    left out) and reads registers and spill bytes from ptxas -v; it refuses
+    a parent directory without the package."""
+    from rangefilteredann_tpu_torch.tools import ab
+
+    out = ("ptxas info    : Compiling entry function "
+           "'_ZN45_GLOBAL__N__2120ea9f_12_scan_topk_cu_419e08dd17scan_items_kernelIfLb1ELi2EEEvNS_8ScanArgsE'"
+           " for 'sm_90a'\nptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 245 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function "
+           "'_ZN45_GLOBAL__N__c542dd46_12_scan_topk_cu_419e08dd12merge_kernelENS_8ScanArgsE'"
+           " for 'sm_90a'\nptxas info    : Function properties for y\n"
+           "    48 bytes stack frame, 48 bytes spill stores, 132 bytes spill loads\n"
+           "ptxas info    : Used 24 registers, used 0 barriers\n")
+    assert ab.ptxas(out) == {
+        "_ZNANON17scan_items_kernelIfLb1ELi2EEEvNS_8ScanArgsE": (245, 0),
+        "_ZNANON12merge_kernelENS_8ScanArgsE": (24, 48)}
+    with pytest.raises(SystemExit):
+        ab.main(["--parent", str(tmp_path)])
