@@ -14,11 +14,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      every block's windows into several segments and log the grid, the beam search
      against ops/beam.beam_search_plain in both of its launch
      configurations, logged case by case, the scan variants v2, v3 and v3b of
-     tools/ against their plain versions at two (tile, qblock) shapes, v3b
-     and v2 (fp32 and bf16, k = 1, 10 and 256) also on windows that cut
+     tools/ against their plain versions at two (tile, qblock) shapes, v3,
+     v3b and v2 (fp32 and bf16, k = 1, 10 and 256) also on windows that cut
      their blocks into several segments, bit for bit on grid-valued data,
      v2's bf16 pass and its fp32 rerank bit for bit on grid-valued data, the
-     nested-loop probe against 6 x);
+     nested-loop probe against its plain version, aligned, misaligned, with
+     a tail and past its grid's cap);
   4. the prefilter main path at SIFT-1M scale (1M x 128 fp32, 1000 clusters,
      noise 0.35, uniform labels, as bench.py makes its data): PrefilterIndex
      on the card, batch_search of 10,240 queries at k=10 at filter fraction
@@ -77,8 +78,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the launch counts reset just before and read just after, then the
      --dups inputs; each variant against a float64 oracle, its plain
      version and the scan kernel, and v2's bf16 pass + fp32 rerank recall;
-     the grid of v3b and of v2 (fp32 and bf16) at the harness, and their
+     the grid of v3, v3b and v2 (fp32 and bf16) at the harness, and their
      device time a call by kernel (torch.profiler) beside the CUDA events';
+     the probe kernel's device time a launch beside torch.mul's;
   9. the experiment layer (experiments/), in a temporary directory that is
      also the benchmark driver's working directory (it writes results/ and
      index_cache/ there): the adversarial set at the reference's scale
@@ -653,13 +655,14 @@ def run_variant_cases(torch):
 
 
 def run_split_cases(torch):
-    """v3b and v2 on windows that cut every block into several segments (the
-    merge kernel joins their lists) with more items than resident CTAs, on
-    grid-valued data, where every distance is exact (and exact in bf16):
-    v3b at each of its settings of variant_runs, v2 in fp32 and in bf16 at
-    both shapes with k = 1, K and 256, each identical to its plain version,
-    the grid logged."""
+    """v3, v3b and v2 on windows that cut every block into several segments
+    (the merge kernel joins their lists) with more items than resident CTAs,
+    on grid-valued data, where every distance is exact (and exact in bf16):
+    v3 and v3b at each of their settings of variant_runs, v2 in fp32 and in
+    bf16 at both shapes with k = 1, K and 256, each identical to its plain
+    version, the grid logged."""
     from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
+    from rangefilteredann_tpu_torch.tools import exp_scan3 as v3
     from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
     from rangefilteredann_tpu_torch.tools import scan_items
     from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
@@ -672,10 +675,13 @@ def run_split_cases(torch):
     ps = make_pointset(pts, "l2", device="cuda")
     a = (ps.data, ps.norms_sq, torch.from_numpy(pad_queries(q, D, ps.d_pad)).cuda(),
          torch.from_numpy(s).cuda(), torch.from_numpy(e).cuda())
-    # (name, kernel call, k, bf16, its grid); v3b's plain version is v2's fp32 one
-    runs = [(name, fn, K, False, functools.partial(v3b.grid, tile=fn.keywords["tile"],
+    # (name, kernel call, k, bf16, its grid); v3's and v3b's plain version is
+    # v2's fp32 one
+    grids = {"v3 ": v3.grid, "v3b ": v3b.grid}
+    runs = [(name, fn, K, False, functools.partial(grid, tile=fn.keywords["tile"],
                                                    qblock=fn.keywords["qblock"]))
-            for name, fn in variant_runs("l2") if name.startswith("v3b")]
+            for name, fn in variant_runs("l2")
+            for prefix, grid in grids.items() if name.startswith(prefix)]
     for (t, b), bf16, k in itertools.product(variant_shapes(), (False, True), (1, K, 256)):
         kw = dict(tile=t, qblock=b, bf16=bf16)
         runs.append((f"v2 {'bf16' if bf16 else 'fp32'} T={t} QB={b}",
@@ -734,18 +740,30 @@ def run_bf16_cases(torch):
 
 def run_probe_case(torch):
     """The probe on ones (6 everywhere) and on random x against its plain
-    version. Returns max |kernel - plain| over both."""
+    version: the JAX tool's [8, 128] (float4 lanes), an n that is no
+    multiple of 4 (the scalar tail), a view one float past a 16-byte
+    boundary (the scalar path), and 2^24 floats aligned and 2^24 + 3 past
+    the boundary (more CTAs than the grid's cap: the lanes stride). Returns
+    max |kernel - plain| over all."""
     from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
 
     out = v3b.probe_nested_while("cuda")
-    x = torch.from_numpy(np.random.default_rng(5).normal(size=(8, 128)).astype(np.float32)).cuda()
-    got, plain = v3b.probe_sum(x), v3b.probe_nested_while_plain(x)
-    torch.cuda.synchronize()
-    err = max(float((out - 6.0).abs().max()), float((got - plain).abs().max()))
-    if not (bool((out == 6.0).all()) and torch.equal(got, plain)):
-        raise AssertionError(f"the probe kernel is not 6 x (max|dd|={err:.3g})")
-    log(f"probe case: ones -> 6 everywhere; random x identical to the plain version, "
-        f"max|dd|={err:.3g}")
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.normal(size=2 ** 24 + 4).astype(np.float32) * 1e3).cuda()
+    xs = {"[8, 128]": base[:1024].view(8, 128), "n=1027": base[:1027],
+          "misaligned n=1024": base[1:1025], "n=2^24": base[:2 ** 24],
+          "misaligned n=2^24+3": base[1:]}
+    err = float((out - 6.0).abs().max())
+    ok = bool((out == 6.0).all())
+    for name, x in xs.items():
+        got, plain = v3b.probe_sum(x), v3b.probe_nested_while_plain(x)
+        torch.cuda.synchronize()
+        err = max(err, float((got - plain).abs().max()))
+        ok = ok and torch.equal(got, plain)
+    if not ok:
+        raise AssertionError(f"the probe kernel differs from its plain version (max|dd|={err:.3g})")
+    log(f"probe case: ones -> 6 everywhere; random x ({', '.join(xs)}) identical to the plain "
+        f"version, max|dd|={err:.3g}")
     return err
 
 
@@ -2025,7 +2043,7 @@ def run_variant_path(torch, args, errs):
     main(). errs holds each kernel's max |dd| from the earlier phases, by
     name. Returns the kernels line's entries of v2, v3, v3b and the probe."""
     from rangefilteredann_tpu_torch.ops import beam, scan
-    from rangefilteredann_tpu_torch.tools import D as HD, K as HK, make_harness
+    from rangefilteredann_tpu_torch.tools import D as HD, GRIDS, K as HK, make_harness
     from rangefilteredann_tpu_torch.tools import exp_scan2 as v2
     from rangefilteredann_tpu_torch.tools import exp_scan3 as v3
     from rangefilteredann_tpu_torch.tools import exp_scan3b as v3b
@@ -2076,6 +2094,9 @@ def run_variant_path(torch, args, errs):
     for tile, qblock in sorted({(t, b) for t, b, _ in v3b.CASES}):
         g = v3b.grid(*h3b.args, HK, tile=tile, d_eff=HD, qblock=qblock)
         log(f"scan_v3b grid harness T={tile} QB={qblock}: {scan_items.grid_note(g, tile)}")
+    for tile, qblock in GRIDS:
+        g = v3.grid(*h3.args, HK, tile=tile, d_eff=HD, qblock=qblock)
+        log(f"scan_v3 grid harness T={tile} QB={qblock}: {scan_items.grid_note(g, tile)}")
     for (tile, qblock), bf16 in itertools.product(variant_shapes(), (False, True)):
         g = v2.grid(*h2.args, HK, tile=tile, bf16=bf16, d_eff=HD, qblock=qblock)
         log(f"scan_v2 grid harness T={tile} QB={qblock} {'bf16' if bf16 else 'fp32'}: "
@@ -2097,6 +2118,8 @@ def run_variant_path(torch, args, errs):
          functools.partial(v2.rerank_fp32, h2.ps.data, h2.ps.norms_sq, h2.qp, ids_k, HK)),
         (f"v3b T={tile0} QB={qb0} U=4", functools.partial(v3b.scan_v3b, *h2.args, HK, tile=tile0,
                                                         d_eff=HD, qblock=qb0, unroll=4))]
+    profiled += [(f"v3 T={t} QB={b}", functools.partial(v3.scan_v3, *h3.args, HK, tile=t,
+                                                        d_eff=HD, qblock=b)) for t, b in GRIDS]
     for name, fn in profiled:
         fn()
         ms = cuda_time_ms(torch, fn, 10)
@@ -2130,6 +2153,18 @@ def run_variant_path(torch, args, errs):
     probe_plain = cuda_time_ms(torch, lambda: v3b.probe_nested_while_plain(x), 20)
     timed["probe"] = (probe_ms, probe_plain,
                       *bound(6.0 * x.numel(), 2 * 4 * x.numel(), PEAK_FP32_FLOPS))
+    # the probe kernel's own device time, beside one elementwise launch of
+    # torch on the same tensor (context only: torch.mul rounds once)
+    dev_ms = {}
+    for name, fn, key in (("probe kernel", lambda: v3b.probe_sum(x), "probe_nested_while"),
+                          ("torch.mul(x, 6.0)", lambda: torch.mul(x, 6.0), "")):
+        _, _, rows = device_breakdown(torch, lambda fn=fn: [fn() for _ in range(100)], top=1000)
+        dev_ms[name] = sum(t for op, t in rows if key in op) / 100
+    log(f"harness device probe [8, 128]: kernel {dev_ms['probe kernel']:.6f} ms a launch "
+        f"(profiler), torch.mul(x, 6.0) {dev_ms['torch.mul(x, 6.0)']:.6f} ms a launch (one "
+        f"elementwise launch, context only); CUDA events of the wrapper {probe_ms:.6f} ms a "
+        f"call, plain version {probe_plain:.6f}; bound {timed['probe'][2]:.7f} ms by "
+        f"{timed['probe'][3]}: at this shape the time is one launch")
 
     def entry(name, source, replaces):
         ms, plain_ms, b_ms, b_by = timed[name]

@@ -1,8 +1,8 @@
 // Device helpers shared by the scan kernels, hand-written CUDA C++ for
-// sm_90a: the production scan (scan_topk.cu), the persistent body of the
-// variants v2 and v3b (scan_items.cuh) and the shared body of v3
-// (scan_variants.cuh). One definition each, so that the (dist, id) order,
-// the published bound and the merge of item lists cannot drift apart.
+// sm_90a: the production scan (scan_topk.cu) and the persistent body of the
+// variants v2, v3 and v3b (scan_items.cuh). One definition each, so that the
+// (dist, id) order, the published bound and the merge of item lists cannot
+// drift apart.
 //
 // Every list here is sorted by (dist, id) lexicographically (lowest id first
 // among equal distances) and padded with (+inf, EMPTY_ID).

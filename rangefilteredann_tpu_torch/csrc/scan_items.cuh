@@ -1,6 +1,7 @@
-// The persistent item body of the scan variants v2 (scan_v2.cu) and v3b
-// (scan_v3b.cu), hand-written CUDA C++ for sm_90a. Each source passes its
-// extraction policy, and v2's bf16 mode its tensor-core product.
+// The persistent item body of the scan variants v2 (scan_v2.cu), v3
+// (scan_v3.cu) and v3b (scan_v3b.cu), hand-written CUDA C++ for sm_90a.
+// Each source passes its extraction policy (v3 and v3b the round extraction
+// below, uncapped and capped), and v2's bf16 mode its tensor-core product.
 //
 // What it computes: for each query q with window [starts[q], ends[q]) over
 // the label-sorted store, dist(q, col) = norms[col] - 2 q.x_col (L2, shifted)
@@ -197,6 +198,64 @@ __device__ __forceinline__ void group_min(const float* p, int lane, float& m, in
   }
   warp_argmin(m, a);
 }
+
+// The round extraction, the policy of v3b (CAPPED: at most `unroll` steps a
+// round) and of v3 (uncapped), for sorted query ql against one tile, one
+// warp, lane g holding group g's table entry (gm, am), gk the query's
+// published bound. A round takes steps against the table alone: each
+// inserts the table's best head if it beats min(own k-th, published bound)
+// under the (dist, id) compare and retires that entry; a step that does not
+// improve ends the round's steps, since no later head is smaller. Then the
+// inserted heads are retired in the tile and only their groups rescanned. A
+// head above the bound is dead, and so is its group, since the head is the
+// group's minimum: its entry is dropped without a rescan.
+//
+// v3 (tools/exp_scan3.py:139-184) inserts heads while they improve, then
+// retires every head, inserted or not, and rebuilds the whole table. That is
+// this round with no cap on the steps. Every head its inner loop did not
+// insert failed the compare (the argmin that ended the loop did, and the
+// others are no smaller), the k-th entry only decreases, and a head is its
+// group's minimum: those groups can give nothing more, and v3's rebuild of
+// them finds nothing to insert. Uncapped, a round ends after at most
+// `groups` steps (one entry a lane), when every entry is retired. Capped or
+// not, the result is the exact (dist, id) top-k; the cap moves only the
+// time, by how many inserts one rescan pass serves.
+template <bool CAPPED>
+struct RoundExtract {
+  __device__ static void run(float* dist, int qb, int ql, int r0, int rw, int groups,
+                             int tile_base, float gk, float* ld, int* li, int k, int unroll,
+                             float gm, int am, int lane) {
+    const int cap = CAPPED ? unroll : groups;
+    while (true) {
+      const float gm_in = gm;  // round-start heads
+      int steps = 0;
+      for (; steps < cap; ++steps) {
+        float m = gm;
+        int gsel = lane;
+        warp_argmin(m, gsel);
+        const int cid = tile_base + gsel * GROUP + __shfl_sync(FULL, am, gsel);
+        if (!(m < INFINITY && m <= gk && lex_less(m, cid, ld[k - 1], li[k - 1]))) break;
+        warp_insert(ld, li, k, m, cid, lane);
+        if (lane == gsel) gm = INFINITY;
+      }
+      if (steps == 0) break;
+      // retire the inserted heads; a head above the bound kills its group
+      const bool inserted = lane < groups && gm_in < INFINITY && gm == INFINITY;
+      if (inserted) group_row(dist, qb, ql, lane, r0, rw)[am] = INFINITY;
+      else if (gm > fminf(gk, ld[k - 1])) gm = INFINITY;
+      __syncwarp();
+      unsigned mask = __ballot_sync(FULL, inserted);
+      while (mask) {
+        const int g = __ffs(mask) - 1;
+        mask &= mask - 1;
+        float m;
+        int at;
+        group_min(group_row(dist, qb, ql, g, r0, rw), lane, m, at);
+        if (lane == g) { gm = m; am = at; }
+      }
+    }
+  }
+};
 
 // Round r of a tile: its first column and its width.
 __device__ __forceinline__ void round_span(int r, int r0, int rw, int& cb, int& w) {
@@ -699,6 +758,20 @@ int run(const Call& c) {
   const int merge_grid = (c.args.nq + MERGE_WARPS - 1) / MERGE_WARPS;
   merge_items<Product::QB, Args><<<merge_grid, MERGE_WARPS * 32, 0, c.stream>>>(c.args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// run() with the fp32 product at c.qb, L2 or MIPS, or -1 for a qblock the
+// kernel does not take.
+template <class Extract>
+int run_fp32(const Call& c, bool l2) {
+  switch (c.qb) {
+    case 8: return l2 ? run<FmaProduct<8>, true, Extract>(c) : run<FmaProduct<8>, false, Extract>(c);
+    case 16:
+      return l2 ? run<FmaProduct<16>, true, Extract>(c) : run<FmaProduct<16>, false, Extract>(c);
+    case 32:
+      return l2 ? run<FmaProduct<32>, true, Extract>(c) : run<FmaProduct<32>, false, Extract>(c);
+    default: return -1;
+  }
 }
 
 // The layout of (qblock, tile, k) into c, or -1 for arguments the kernel

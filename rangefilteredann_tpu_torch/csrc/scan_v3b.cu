@@ -1,7 +1,8 @@
 // Scan variant v3b: the range-masked (dist, id) top-k by U insert steps a
 // round against a per-128-point group table, then one retire-and-rescan
 // pass; and the nested-loop probe. Hand-written CUDA C++ for sm_90a, on the
-// persistent item body scan_items.cuh (shared with scan_v2.cu).
+// persistent item body scan_items.cuh (shared with scan_v2.cu and
+// scan_v3.cu).
 //
 // Replaces the TPU kernels tools/exp_scan3b.py::_scan_kernel_v3b (wrapper
 // scan_v3b) and the kernel of tools/exp_scan3b.py::probe_nested_while. Bound
@@ -18,18 +19,19 @@
 // windows of 50,000) against ~0.03 ms of bytes; no TF32 and no tensor cores,
 // so the result stays fp32-exact. What the design does about it: the body's
 // persistent items, register tiles, cp.async ring, epilogue-built group
-// table and published bound (scan_items.cuh), and this extraction: a round
-// runs up to U steps against the table alone, each inserting the table's
-// best head if it beats the query's k-th entry ((dist, id) compare) and
-// retiring that entry; a step that does not improve ends the round's steps,
-// since no later step could. One pass then retires the inserted heads and
-// rescans only their groups. A head above the bound is dead, and so is its
-// group, since the head is the group's minimum: its entry is dropped
-// without a rescan.
+// table and published bound (scan_items.cuh), and its round extraction
+// capped at U = unroll steps a round (RoundExtract<true>), so that one
+// rescan pass serves up to U inserts.
 //
-// The probe: out = x summed in a 3 x 2 nested loop, i.e. 6 x. It showed
-// whether the TPU's compiler took a while loop inside a while loop; here it
-// is one elementwise kernel.
+// The probe: out = x summed in a 3 x 2 nested loop (acc = 0, then acc += x
+// six times, the plain version's order; 6 * x would round differently). It
+// showed whether the TPU's compiler took a while loop inside a while loop;
+// here it is one elementwise kernel, bound by its bytes (4 read and 4
+// written an element: 8 KB at the JAX tool's [8, 128], ~2.4 ns at 3.35
+// TB/s), so at that shape its time is one launch. A lane loads one float4
+// and stores one (one CTA of 256 lanes covers [8, 128]), grid-stride beyond
+// that; the n % 4 tail, and all of x where x or out is not 16-byte aligned,
+// go one float a lane.
 
 #include "scan_items.cuh"
 
@@ -37,66 +39,28 @@ namespace {
 
 using namespace scan_items;
 
-struct ExtractV3b {
-  __device__ static void run(float* dist, int qb, int ql, int r0, int rw, int groups,
-                             int tile_base, float gk, float* ld, int* li, int k, int unroll,
-                             float gm, int am, int lane) {
-    while (true) {
-      const float gm_in = gm;  // round-start heads
-      int steps = 0;
-      for (; steps < unroll; ++steps) {
-        float m = gm;
-        int gsel = lane;
-        warp_argmin(m, gsel);
-        const int cid = tile_base + gsel * GROUP + __shfl_sync(FULL, am, gsel);
-        if (!(m < INFINITY && m <= gk && lex_less(m, cid, ld[k - 1], li[k - 1]))) break;
-        warp_insert(ld, li, k, m, cid, lane);
-        if (lane == gsel) gm = INFINITY;
-      }
-      if (steps == 0) break;
-      // retire the inserted heads; a head above the bound kills its group
-      const bool inserted = lane < groups && gm_in < INFINITY && gm == INFINITY;
-      if (inserted) group_row(dist, qb, ql, lane, r0, rw)[am] = INFINITY;
-      else if (gm > fminf(gk, ld[k - 1])) gm = INFINITY;
-      __syncwarp();
-      unsigned mask = __ballot_sync(FULL, inserted);
-      while (mask) {
-        const int g = __ffs(mask) - 1;
-        mask &= mask - 1;
-        float m;
-        int at;
-        group_min(group_row(dist, qb, ql, g, r0, rw), lane, m, at);
-        if (lane == g) { gm = m; am = at; }
-      }
-    }
-  }
-};
+constexpr int PROBE_THREADS = 256;
+constexpr long long PROBE_MAX_CTAS = 4096;  // then the lanes stride
 
-template <bool L2>
-int by_qblock(const Call& c) {
-  switch (c.qb) {
-    case 8: return run<FmaProduct<8>, L2, ExtractV3b>(c);
-    case 16: return run<FmaProduct<16>, L2, ExtractV3b>(c);
-    case 32: return run<FmaProduct<32>, L2, ExtractV3b>(c);
-    default: return -1;
-  }
+__device__ __forceinline__ float nested_sum(float v) {
+  float acc = 0.f;
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 2; ++b) acc += v;
+  return acc;
 }
 
-__global__ void probe_nested_while_kernel(const float* __restrict__ x,
-                                          float* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.f;
-  int a = 0;
-  while (a < 3) {
-    int b = 0;
-    while (b < 2) {
-      acc += x[i];
-      ++b;
-    }
-    ++a;
+__global__ void __launch_bounds__(PROBE_THREADS)
+    probe_nested_while_kernel(const float* __restrict__ x, float* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * PROBE_THREADS;
+  const long long t = static_cast<long long>(blockIdx.x) * PROBE_THREADS + threadIdx.x;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    reinterpret_cast<float4*>(out)[i] =
+        make_float4(nested_sum(v.x), nested_sum(v.y), nested_sum(v.z), nested_sum(v.w));
   }
-  out[i] = acc;
+  for (long long i = 4 * n4 + t; i < n; i += stride) out[i] = nested_sum(x[i]);
 }
 
 }  // namespace
@@ -113,7 +77,7 @@ int scan_v3b_config(int qblock, int tile, int k, int metric_l2, int /*unroll*/, 
   Call c{};
   if (set_layout(c, qblock, tile, k) != 0) return -1;
   c.config = out;
-  return metric_l2 ? by_qblock<true>(c) : by_qblock<false>(c);
+  return run_fp32<RoundExtract<true>>(c, metric_l2 != 0);
 }
 
 // metric_l2: 1 for L2, 0 for MIPS; qblock 8, 16 or 32; tile a multiple of
@@ -137,15 +101,18 @@ int scan_v3b_launch(const void* data, long long n_rows, int d_pad, int d_stream,
                n_real, tile, qblock, unroll, tile_begin, tile_end, prefix, seg, item_code,
                n_blocks, counter, kth, part_d, part_i, order, out_d, out_i, grid, stream) != 0)
     return -1;
-  return metric_l2 ? by_qblock<true>(c) : by_qblock<false>(c);
+  return run_fp32<RoundExtract<true>>(c, metric_l2 != 0);
 }
 
-int probe_nested_while_launch(const void* x, void* out, int n, void* stream) {
+// out[i] = x[i] summed in a 3 x 2 nested loop, i < n, on `stream`. Returns
+// cudaGetLastError() after the launch (0 on success).
+int probe_nested_while_launch(const void* x, void* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  probe_nested_while_kernel<<<(n + 255) / 256, 256, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const long long ctas = ((n + 3) / 4 + PROBE_THREADS - 1) / PROBE_THREADS;
+  probe_nested_while_kernel<<<static_cast<int>(ctas < PROBE_MAX_CTAS ? ctas : PROBE_MAX_CTAS),
+                              PROBE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), n);
-  return (int)cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

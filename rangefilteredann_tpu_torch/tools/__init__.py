@@ -4,14 +4,14 @@ Counterpart of the JAX package's `tools/exp_scan2.py`, `exp_scan3.py` and
 `exp_scan3b.py`: three designs of the range-masked top-k scan, each a
 hand-written CUDA kernel (`csrc/scan_v2.cu`, `scan_v3.cu`, `scan_v3b.cu`)
 with its wrapper, its plain version and a `main()` in the module of
-the same name (v2 and v3b on one persistent item body, whose launch path
-is `scan_items.py`):
+the same name (all three on one persistent item body, whose caps and
+launch path are `scan_items.py`):
 
     python -m rangefilteredann_tpu_torch.tools.exp_scan2 [--reps 10] [--device cpu]
 
-This module holds what the three share: the kernels' caps, v3's launch
-around its ctypes-bound kernel, the plain version, the harness data (made
-exactly as the JAX tools make it), timing and the float64 oracle check.
+This module holds what the three share beside that: the plain version,
+the harness data (made exactly as the JAX tools make it), timing and the
+float64 oracle check.
 Each main() logs to stderr, as the JAX tools do; its "prod" baseline is the
 port's production scan (`ops/scan.scan_topk`).
 
@@ -23,7 +23,6 @@ sweep shapes (QB 128-512, TILE 2048-8192) do not carry over.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import sys
 import time
@@ -31,23 +30,9 @@ import time
 import numpy as np
 import torch
 
-from .. import kernels
 from ..ops.bruteforce import scan_bruteforce
-from ..ops.scan import MAX_K, sorted_launch_args
 from ..ops.topk import EMPTY_ID
-from ..utils.data import (METRIC_L2, METRIC_MIPS, PointSet, make_pointset,
-                          pad_queries, resolve_device)
-
-# The kernels' caps for check_caps, which holds CPU and CUDA calls to them
-# alike. csrc/scan_variants.cuh (v3) and scan_items.cuh (v2, v3b, with a
-# shared-memory layout of their own) compile the same values in, and their
-# launchers return -1 outside them (the launches raise on that).
-SUB = 256  # points per sub-tile: tiles are multiples of it
-DK = 16  # columns per staged chunk: d_eff is streamed rounded up to it
-GROUP = 128  # points per group-minima table entry
-MAX_TILE = 32 * GROUP  # one table entry per lane
-MAX_SMEM = 231424  # dynamic shared memory a CTA may take
-QBLOCKS = (8, 16, 32)  # queries per CTA (bf16: 16 or 32)
+from ..utils.data import METRIC_L2, PointSet, make_pointset, pad_queries, resolve_device
 
 D, K = 128, 10  # the harness's width and k
 N_ORACLE = 256  # queries held against the float64 oracle
@@ -57,81 +42,6 @@ GRIDS = ((1024, 32), (2048, 16), (1024, 8))
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
-
-
-def smem_bytes(tile: int, qblock: int, k: int) -> int:
-    """Dynamic shared memory of one CTA (csrc/scan_variants.cuh smem_bytes):
-    the distance block, the running lists, one staged chunk."""
-    return qblock * tile * 4 + qblock * k * 8 + (DK * qblock + SUB * (DK + 1)) * 4
-
-
-def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
-               bf16: bool = False, unroll: int = 1, metric: str = METRIC_L2,
-               smem=smem_bytes):
-    """Raise ValueError outside the variant kernels' caps, on any device:
-    nothing falls back. smem(tile, qblock, k) sizes a CTA's shared memory
-    (v2 and v3b have a layout of their own, scan_items.smem_bytes)."""
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the scan variants take CPU or CUDA tensors, got {data.device}")
-    if metric not in (METRIC_L2, METRIC_MIPS):
-        raise ValueError(metric)
-    if data.dtype != torch.float32:
-        raise ValueError(f"the scan variants take float32 stores, not {data.dtype}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the scan variants take 1 <= k <= {MAX_K}, got k={k}")
-    if not (SUB <= tile <= MAX_TILE and tile % SUB == 0):
-        raise ValueError(f"tile must be a multiple of {SUB} up to {MAX_TILE}, got {tile}")
-    if qblock not in QBLOCKS or (bf16 and qblock < 16):
-        raise ValueError(f"qblock must be one of {QBLOCKS} (bf16: 16 or 32), got {qblock}")
-    need = smem(tile, qblock, k)
-    if need > MAX_SMEM:
-        raise ValueError(f"a [{qblock}, {tile}] block with k={k} takes "
-                         f"{need} bytes of shared memory, over {MAX_SMEM}")
-    if unroll < 1:
-        raise ValueError(f"unroll must be >= 1, got {unroll}")
-
-
-def bind(name: str, symbol: str, n_tail: int):
-    """The C launcher `symbol` of csrc/<name>.cu with its argument types:
-    (data, n_rows, d_pad, d_stream, norms, queries, starts, ends, nq,
-    n_tail ints, out_d, out_i, stream)."""
-    fn = getattr(kernels.load(name), symbol)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i] + [i] * n_tail + [p, p, p]
-    fn.restype = i
-    return fn
-
-
-def launch(fn, name, data, norms_sq, queries, starts, ends, k, d_eff, tail):
-    """Sort the queries by window midpoint, launch `fn` on PyTorch's current
-    stream, raise on a refused launch, and return (dists, ids) in the
-    caller's query order. An empty batch launches nothing."""
-    dev = data.device
-    n_rows, d_pad = data.shape
-    order, qs, s_s, e_s, d_stream = sorted_launch_args(
-        data, norms_sq, queries, starts, ends, k,
-        d_pad if d_eff is None else int(d_eff), chunk=DK,
-        dtypes=(torch.float32,), name=name)
-    q = qs.shape[0]
-    d_sorted = torch.empty((q, k), dtype=torch.float32, device=dev)
-    i_sorted = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
-        return d_sorted, i_sorted
-    with torch.cuda.device(dev):
-        rc = fn(data.data_ptr(), n_rows, d_pad, d_stream, norms_sq.data_ptr(),
-                qs.data_ptr(), s_s.data_ptr(), e_s.data_ptr(), q, *tail,
-                d_sorted.data_ptr(), i_sorted.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc == -1:  # the launcher's own check of the caps, behind check_caps
-        raise RuntimeError(f"{name}: the kernel refused its arguments (code -1), "
-                           f"which check_caps let through: the caps here and in "
-                           f"csrc/scan_variants.cuh disagree")
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed (CUDA error {rc})")
-    out_d, out_i = torch.empty_like(d_sorted), torch.empty_like(i_sorted)
-    out_d[order] = d_sorted
-    out_i[order] = i_sorted
-    return out_d, out_i
 
 
 def window_scan_plain(data, norms_sq, queries, starts, ends, k,

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's tools/exp_scan2.py. `scan_v2` is the
 wrapper of csrc/scan_v2.cu (which replaces the Pallas kernel
-`_scan_kernel_v2`), on the persistent item body it shares with v3b
+`_scan_kernel_v2`), on the persistent item body it shares with v3 and v3b
 (csrc/scan_items.cuh, launched through tools/scan_items.py): one candidate
 at a time is taken from per-128-point group minima, and a tile is left as
 soon as its best no longer beats a query's k-th entry. L2 only. With
@@ -33,7 +33,7 @@ from .. import kernels
 from ..ops.scan import scan_topk
 from ..ops.topk import EMPTY_ID
 from ..utils.data import METRIC_L2
-from . import D, GRIDS, K, check_caps, log, main_args, make_harness, window_scan_plain
+from . import D, GRIDS, K, log, main_args, make_harness, window_scan_plain
 from . import scan_items as items
 
 # Kernel launches since the count was last set to 0.
@@ -56,7 +56,7 @@ def scan_v2(data, norms_sq, queries, starts, ends, k, tile=512, bf16=False,
     windows. Returns (dists [Q, k] f32, ids [Q, k] int32) in the caller's
     query order, (dist, id) ascending, empty slots (+inf, EMPTY_ID)."""
     global SCAN_V2_LAUNCHES
-    check_caps(data, k, tile, qblock, bf16=bf16, smem=items.smem_bytes)
+    items.check_caps(data, k, tile, qblock, bf16=bf16)
     if data.device.type == "cpu":
         return scan_v2_plain(data, norms_sq, queries, starts, ends, k, bf16, d_eff)
     dev = data.device

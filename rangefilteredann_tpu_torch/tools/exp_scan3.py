@@ -2,9 +2,13 @@
 
 Counterpart of the JAX package's tools/exp_scan3.py. `scan_v3` is the
 wrapper of csrc/scan_v3.cu (which replaces the Pallas kernel
-`_scan_kernel_v3`): per round, the heads of a per-128-point group-minima
-table are inserted while they improve, then one pass over the tile retires
-every head and rebuilds the table. L2 and MIPS, fp32.
+`_scan_kernel_v3`) on the persistent item body it shares with v2 and v3b
+(csrc/scan_items.cuh, launched through tools/scan_items.py): per round, the
+heads of a per-128-point group-minima table are inserted while they
+improve, then the inserted heads are retired and only their groups
+rescanned (v3's pass that retires every head and rebuilds the whole table:
+the heads not inserted are dead, see RoundExtract in the header); a merge
+kernel joins the items' lists. L2 and MIPS, fp32.
 
 A CPU tensor goes to the plain version `scan_v3_plain`; a CUDA tensor goes
 to the kernel or raises. There is no fallback from one to the other.
@@ -12,31 +16,27 @@ to the kernel or raises. There is no fallback from one to the other.
     python -m rangefilteredann_tpu_torch.tools.exp_scan3 [--reps 10] [--n 200000]
         [--nq 2048] [--dups] [--device cuda|cpu]
 
-times the production scan and v3 at the card's grid shapes and compares
-their ids and distances. The first four windows are degenerate (empty or
-narrower than k); --dups duplicates every third point (exact ties).
+times the production scan and v3 at the card's grid shapes, compares
+their ids and distances, and logs each v3 launch's grid (items, segments a
+block, CTAs an SM, registers, spills, shared memory, ring). The first four
+windows are degenerate (empty or narrower than k); --dups duplicates every
+third point (exact ties).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from .. import kernels
 from ..ops.scan import scan_topk
 from ..utils.data import METRIC_L2
-from . import (D, GRIDS, K, bind, check_caps, main_args, launch,
-               make_harness, window_scan_plain)
+from . import D, GRIDS, K, log, main_args, make_harness, window_scan_plain
+from . import scan_items as items
 
 # Kernel launches since the count was last set to 0.
 SCAN_V3_LAUNCHES = 0
-
-_launch_fn = None
-
-
-def _kernel():
-    global _launch_fn
-    if _launch_fn is None:
-        _launch_fn = bind("scan_v3", "scan_v3_launch", 5)
-    return _launch_fn
 
 
 def scan_v3_plain(data, norms_sq, queries, starts, ends, k, metric="l2",
@@ -53,14 +53,26 @@ def scan_v3(data, norms_sq, queries, starts, ends, k, metric="l2", tile=1024,
     ids [Q, k] int32) in the caller's query order, (dist, id) ascending,
     empty slots (+inf, EMPTY_ID), L2 shifted (no ||q||^2)."""
     global SCAN_V3_LAUNCHES
-    check_caps(data, k, tile, qblock, metric=metric)
+    items.check_caps(data, k, tile, qblock, metric=metric)
     if data.device.type == "cpu":
         return scan_v3_plain(data, norms_sq, queries, starts, ends, k, metric, d_eff)
-    out = launch(_kernel(), "scan_v3", data, norms_sq, queries, starts, ends, k,
-                 d_eff, (k, int(metric == METRIC_L2), data.shape[0], tile, qblock))
-    if queries.shape[0]:
+    dev = data.device
+    with torch.cuda.device(dev):
+        out_d, out_i, plan = items.launch(
+            kernels.load("scan_v3"), "scan_v3", data, norms_sq, queries, starts, ends, k,
+            d_eff, tile, qblock, int(metric == METRIC_L2), 1,
+            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    if plan is not None:
         SCAN_V3_LAUNCHES += 1
-    return out
+    return out_d, out_i
+
+
+def grid(data, norms_sq, queries, starts, ends, k, metric="l2", tile=1024, d_eff=None,
+         qblock=32):
+    """The grid a CUDA call of scan_v3 takes on these inputs
+    (tools/scan_items.grid). Launches nothing."""
+    return items.grid(kernels.load("scan_v3"), "scan_v3", data, norms_sq, queries, starts,
+                      ends, k, d_eff, tile, qblock, int(metric == METRIC_L2), 1)
 
 
 def main(argv=None):
@@ -79,6 +91,9 @@ def main(argv=None):
         out, _ = h.timeit(name, lambda tile=tile, qblock=qblock: scan_v3(
             *h.args, K, tile=tile, d_eff=D, qblock=qblock))
         h.vs_prod(prod, out, name)
+        if h.device.type == "cuda":
+            g = grid(*h.args, K, tile=tile, d_eff=D, qblock=qblock)
+            log(f"  grid: {items.grid_note(g, tile)}")
     return h
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's tools/exp_scan3b.py. `scan_v3b` is the
 wrapper of csrc/scan_v3b.cu (which replaces the Pallas kernel
-`_scan_kernel_v3b`) on the persistent item body it shares with v2
+`_scan_kernel_v3b`) on the persistent item body it shares with v2 and v3
 (csrc/scan_items.cuh, launched through tools/scan_items.py): a persistent
 grid of (query block, tile segment) items, a register-tiled fp32 product,
 and per round `unroll` insert steps against a per-128-point group-minima
@@ -35,7 +35,7 @@ import torch
 from .. import kernels
 from ..ops.scan import scan_topk
 from ..utils.data import METRIC_L2, resolve_device
-from . import D, GRIDS, K, check_caps, main_args, log, make_harness, window_scan_plain
+from . import D, GRIDS, K, main_args, log, make_harness, window_scan_plain
 from . import scan_items as items
 
 # Kernel launches since the count was last set to 0.
@@ -46,7 +46,7 @@ PROBE_LAUNCHES = 0
 CASES = ((GRIDS[0][0], GRIDS[0][1], 4), (GRIDS[0][0], GRIDS[0][1], 2),
          (GRIDS[0][0], GRIDS[0][1], 8), (GRIDS[1][0], GRIDS[1][1], 4))
 
-_probe_fn = None
+_probe_bound: "set[int]" = set()  # libraries whose probe has its ctypes signature
 
 
 def scan_v3b_plain(data, norms_sq, queries, starts, ends, k, metric="l2",
@@ -63,7 +63,7 @@ def scan_v3b(data, norms_sq, queries, starts, ends, k, metric="l2", tile=1024,
     ids [Q, k] int32) in the caller's query order, (dist, id) ascending,
     empty slots (+inf, EMPTY_ID), L2 shifted (no ||q||^2)."""
     global SCAN_V3B_LAUNCHES
-    check_caps(data, k, tile, qblock, unroll=unroll, metric=metric, smem=items.smem_bytes)
+    items.check_caps(data, k, tile, qblock, unroll=unroll, metric=metric)
     if data.device.type == "cpu":
         return scan_v3b_plain(data, norms_sq, queries, starts, ends, k, metric, d_eff)
     dev = data.device
@@ -94,15 +94,21 @@ def probe_nested_while_plain(x):
     return acc
 
 
-def _probe_kernel():
-    global _probe_fn
-    if _probe_fn is None:
-        fn = kernels.load("scan_v3b").probe_nested_while_launch
+def probe_launch(lib, x, stream):
+    """The probe kernel of `lib` (the built library of csrc/scan_v3b.cu) on
+    the contiguous float32 x, on `stream`: out = x summed in a 3 x 2 nested
+    loop, allocated here. Raises on a failed launch."""
+    fn = lib.probe_nested_while_launch
+    if id(lib) not in _probe_bound:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_int, p]
+        fn.argtypes = [p, p, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
-        _probe_fn = fn
-    return _probe_fn
+        _probe_bound.add(id(lib))
+    out = torch.empty_like(x)
+    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_nested_while launch failed (code {rc})")
+    return out
 
 
 def probe_sum(x):
@@ -115,12 +121,9 @@ def probe_sum(x):
         return probe_nested_while_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"the probe takes CPU or CUDA tensors, got {x.device}")
-    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = _probe_kernel()(x.data_ptr(), out.data_ptr(), x.numel(),
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_nested_while launch failed (code {rc})")
+        out = probe_launch(kernels.load("scan_v3b"), x,
+                           torch.cuda.current_stream(x.device).cuda_stream)
     PROBE_LAUNCHES += 1
     return out
 

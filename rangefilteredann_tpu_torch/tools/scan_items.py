@@ -1,14 +1,15 @@
 """The launch path of the variants' persistent item body (csrc/scan_items.cuh).
 
-`scan_v2` (csrc/scan_v2.cu) and `scan_v3b` (csrc/scan_v3b.cu) run one
-kernel body over (query block, tile segment) items and differ in their
-extraction policy and, for v2's bf16 mode, the product. Both sources export
-`<name>_config(qblock, tile, k, metric_l2, mode, out)` and
-`<name>_launch(...)` with the same arguments, `mode` being v3b's unroll
-(the same kernel for every value) or v2's bf16 switch. This module holds
-what their wrappers share: the kernels' shape and shared-memory layout (for
-the caps), the ctypes binding, the launch (midpoint sort, the segment plan
-of ops/scan.segment_plan, scratch, the call) and the grid a launch takes.
+`scan_v2` (csrc/scan_v2.cu), `scan_v3` (csrc/scan_v3.cu) and `scan_v3b`
+(csrc/scan_v3b.cu) run one kernel body over (query block, tile segment)
+items and differ in their extraction policy and, for v2's bf16 mode, the
+product. The three sources export `<name>_config(qblock, tile, k,
+metric_l2, mode, out)` and `<name>_launch(...)` with the same arguments,
+`mode` being v3b's unroll (the same kernel for every value), v2's bf16
+switch, or unused (v3). This module holds what their wrappers share: the
+kernels' caps, shape and shared-memory layout, the ctypes binding, the
+launch (midpoint sort, the segment plan of ops/scan.segment_plan, scratch,
+the call) and the grid a launch takes.
 """
 
 from __future__ import annotations
@@ -18,9 +19,17 @@ import ctypes
 import torch
 
 from ..ops import scan
-from ..ops.scan import sorted_launch_args
-from . import GROUP, MAX_SMEM
+from ..ops.scan import MAX_K, sorted_launch_args
+from ..utils.data import METRIC_L2, METRIC_MIPS
 
+# The kernels' caps, which check_caps holds CPU and CUDA calls to alike; the
+# sources compile the same values in, and their launchers return -1 outside
+# them (the launches raise on that).
+SUB = 256  # tiles are multiples of it (TILE_STEP)
+GROUP = 128  # points per group-minima table entry
+MAX_TILE = 32 * GROUP  # one table entry per lane
+MAX_SMEM = 231424  # dynamic shared memory a CTA may take
+QBLOCKS = (8, 16, 32)  # queries per CTA (bf16: 16 or 32)
 # csrc/scan_items.cuh's shape: 8 warps of lanes holding 8 queries x 16
 # points (fp32; the bf16 product covers the same points), a ring of up to
 # 4 stages.
@@ -70,6 +79,30 @@ def layout(tile: int, qblock: int, k: int) -> dict:
 def smem_bytes(tile: int, qblock: int, k: int) -> int:
     """Dynamic shared memory of one item CTA (layout's total)."""
     return layout(tile, qblock, k)["total"]
+
+
+def check_caps(data: torch.Tensor, k: int, tile: int, qblock: int, *,
+               bf16: bool = False, unroll: int = 1, metric: str = METRIC_L2):
+    """Raise ValueError outside the variant kernels' caps, on any device:
+    nothing falls back."""
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the scan variants take CPU or CUDA tensors, got {data.device}")
+    if metric not in (METRIC_L2, METRIC_MIPS):
+        raise ValueError(metric)
+    if data.dtype != torch.float32:
+        raise ValueError(f"the scan variants take float32 stores, not {data.dtype}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the scan variants take 1 <= k <= {MAX_K}, got k={k}")
+    if not (SUB <= tile <= MAX_TILE and tile % SUB == 0):
+        raise ValueError(f"tile must be a multiple of {SUB} up to {MAX_TILE}, got {tile}")
+    if qblock not in QBLOCKS or (bf16 and qblock < 16):
+        raise ValueError(f"qblock must be one of {QBLOCKS} (bf16: 16 or 32), got {qblock}")
+    need = smem_bytes(tile, qblock, k)
+    if need > MAX_SMEM:
+        raise ValueError(f"a [{qblock}, {tile}] block with k={k} takes "
+                         f"{need} bytes of shared memory, over {MAX_SMEM}")
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
 
 
 def bind(lib, name: str):

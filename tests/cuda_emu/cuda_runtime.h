@@ -1,8 +1,9 @@
 // A CPU stand-in for the CUDA subset that the port's kernels use
-// (csrc/beam_search.cu, scan_topk.cu and the persistent item body of
-// scan_v2.cu and scan_v3b.cu), so the kernels' own sources run on the CPU in
-// the tests (tests/test_torch_beam_emulated.py, test_torch_scan_emulated.py,
-// test_torch_scan_v3b.py, test_torch_scan_v2.py).
+// (csrc/beam_search.cu, scan_topk.cu, the persistent item body of
+// scan_v2.cu, scan_v3.cu and scan_v3b.cu, and the probe in scan_v3b.cu), so
+// the kernels' own sources run on the CPU in the tests
+// (tests/test_torch_beam_emulated.py, test_torch_scan_emulated.py,
+// test_torch_scan_v3b.py, test_torch_scan_v2.py, test_torch_scan_v3.py).
 // Every CUDA thread of a CTA is a std::thread; a warp's collectives (ballot,
 // shuffle, reduce, __syncwarp) meet at a barrier of its 32 threads,
 // __syncthreads at one of the CTA's. emu_launch runs the CTAs one after
@@ -103,7 +104,7 @@ struct EmuBlock {
   unsigned char* smem;
   explicit EmuBlock(int threads) : bar(threads) {}
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuBlock* emu_block;
 inline EmuWarp& emu_warp() { return emu_block->warps[threadIdx.x / 32]; }
 inline unsigned char* emu_smem() { return emu_block->smem; }
@@ -228,6 +229,7 @@ void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t, A...
         threadIdx = {unsigned(t), 0, 0};
         blockIdx = {unsigned(b), 0, 0};
         blockDim = {unsigned(threads), 1, 1};
+        gridDim = {unsigned(grid), 1, 1};
         emu_block = &blk;
         kernel(args...);
       });
@@ -251,6 +253,7 @@ void emu_launch_concurrent(K kernel, int grid, int threads, size_t smem, cudaStr
         threadIdx = {unsigned(t), 0, 0};
         blockIdx = {unsigned(b), 0, 0};
         blockDim = {unsigned(threads), 1, 1};
+        gridDim = {unsigned(grid), 1, 1};
         emu_block = blks[b].get();
         kernel(args...);
       });

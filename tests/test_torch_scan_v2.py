@@ -169,7 +169,7 @@ def test_emulated_config_matches_the_layout(emulated):
                 for k in (1, 32, 256):
                     rc = fn(qblock, tile, k, 1, bf16, out)
                     lay = I.layout(tile, qblock, k)
-                    if lay["total"] > PT.MAX_SMEM or (bf16 and qblock == 8):
+                    if lay["total"] > I.MAX_SMEM or (bf16 and qblock == 8):
                         assert rc == -1, (bf16, qblock, tile, k)
                         continue
                     assert rc == 0, (bf16, qblock, tile, k)

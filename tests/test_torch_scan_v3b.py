@@ -27,7 +27,11 @@ csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
   out last first, so that a block's later segments publish their k-th
   distances before its earlier ones run;
 * the shared-memory layout the wrapper's caps use equals the kernel's, and
-  admits every (tile, qblock, k) that the variants' shared body admitted.
+  admits every (tile, qblock, k) that the variants' old block-per-CTA body
+  admitted;
+* the probe kernel of the same source (float4 lanes, a scalar tail, a
+  scalar path for a misaligned tensor), through the wrapper's own launch
+  (exp_scan3b.probe_launch), equal to probe_nested_while_plain.
 """
 
 import ctypes
@@ -172,7 +176,7 @@ def test_emulated_config_matches_the_layout(emulated):
             for k in (1, 10, 100, 256):
                 rc = fn(qblock, tile, k, 1, 1, out)
                 lay = I.layout(tile, qblock, k)
-                if lay["total"] > PT.MAX_SMEM:
+                if lay["total"] > I.MAX_SMEM:
                     assert rc == -1, (qblock, tile, k)
                     continue
                 assert rc == 0, (qblock, tile, k)
@@ -182,26 +186,46 @@ def test_emulated_config_matches_the_layout(emulated):
 
 
 def test_caps_no_narrower_than_the_shared_body():
-    """Every (tile, qblock, k) that the variants' shared body
-    (scan_variants.cuh, tools.smem_bytes) admits, v3b admits."""
-    for qblock in PT.QBLOCKS:
-        for tile in range(PT.SUB, PT.MAX_TILE + 1, PT.SUB):
+    """Every (tile, qblock, k) that the variants' old block-per-CTA body
+    admitted (its shared memory: the distance block, the running lists, one
+    staged chunk of 256 rows x 16 dims), the item body's layout admits, and
+    so do the caps that v3 and v3b check."""
+    store = torch.zeros((1, 16), dtype=torch.float32)
+    for qblock in I.QBLOCKS:
+        for tile in range(I.SUB, I.MAX_TILE + 1, I.SUB):
             for k in range(1, 257):
-                if PT.smem_bytes(tile, qblock, k) <= PT.MAX_SMEM:
-                    assert I.smem_bytes(tile, qblock, k) <= PT.MAX_SMEM, (tile, qblock, k)
+                if qblock * tile * 4 + qblock * k * 8 + (16 * qblock + 256 * 17) * 4 <= 231424:
+                    assert I.smem_bytes(tile, qblock, k) <= I.MAX_SMEM, (tile, qblock, k)
+                    for metric, unroll in (("l2", 1), ("mips", 4)):  # v3's call, then v3b's
+                        I.check_caps(store, k, tile, qblock, unroll=unroll, metric=metric)
+
+
+@pytest.mark.parametrize("n,offset", [(1024, 0), (1027, 0), (1024, 1), (1030, 3)])
+def test_emulated_probe_matches_plain(emulated, n, offset):
+    """The probe at the JAX tool's [8, 128] (one CTA of float4 lanes), at an
+    n that is no multiple of 4 (the scalar tail), and on views 1 and 3
+    floats past a 16-byte boundary (the scalar path)."""
+    rng = np.random.default_rng(n + offset)
+    base = torch.from_numpy(rng.normal(size=n + offset).astype(np.float32) * 1e3)
+    x = base[offset:]
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
+    got = P3B.probe_launch(emulated, x, None)
+    assert torch.equal(got, P3B.probe_nested_while_plain(x))
+    assert not torch.equal(got, 6.0 * x)  # the order of the sum shows
 
 
 def test_kernel_constants_match_the_wrapper():
     """The item body's constants (csrc/scan_items.cuh and the helpers it
-    includes) are the wrappers', and v3b runs on that body, not on v3's."""
+    includes) are the wrappers', and v3b runs on that body, not on the old
+    block-per-CTA one."""
     src = "".join((kernels.CSRC / f).read_text() for f in ("scan_items.cuh", "scan_common.cuh"))
     for name, value in (("WARPS", I.WARPS), ("QT", I.QT), ("PT", I.PT),
-                        ("MAX_STAGES", I.MAX_STAGES), ("GROUP", PT.GROUP),
-                        ("MAX_SEGS", PS.MAX_SEGS), ("MAX_K", 256), ("MAX_SMEM", PT.MAX_SMEM),
-                        ("TILE_STEP", PT.SUB)):
+                        ("MAX_STAGES", I.MAX_STAGES), ("GROUP", I.GROUP),
+                        ("MAX_SEGS", PS.MAX_SEGS), ("MAX_K", 256), ("MAX_SMEM", I.MAX_SMEM),
+                        ("TILE_STEP", I.SUB)):
         assert f"constexpr int {name} = {value};" in src
     assert "int stage_dims(int qb) { return qb >= 16 ? 16 : 8; }" in src
-    assert [I.stage_dims(qb) for qb in PT.QBLOCKS] == [8, 16, 16]
+    assert [I.stage_dims(qb) for qb in I.QBLOCKS] == [8, 16, 16]
     v3b = (kernels.CSRC / "scan_v3b.cu").read_text()
     assert '#include "scan_items.cuh"' in v3b and '#include "scan_variants.cuh"' not in v3b
 

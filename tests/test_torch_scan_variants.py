@@ -30,6 +30,7 @@ from rangefilteredann_tpu_torch.ops.topk import EMPTY_ID
 from rangefilteredann_tpu_torch.tools import exp_scan2 as P2
 from rangefilteredann_tpu_torch.tools import exp_scan3 as P3
 from rangefilteredann_tpu_torch.tools import exp_scan3b as P3B
+from rangefilteredann_tpu_torch.tools import scan_items as I
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL, ATOL = 1e-5, 1e-4
@@ -322,38 +323,45 @@ def test_harness_data_matches_the_jax_tools(jtools, monkeypatch, tool, flags):
 
 def test_kernel_sources_and_constants():
     """The variants' sources ship with the package, and the wrappers' caps
-    agree with the constants compiled into them: only v3 includes
-    scan_variants.cuh; v2 and v3b run on the persistent item body
-    scan_items.cuh (its constants: tests/test_torch_scan_v3b.py); and each
-    helper the scan kernels share is defined once among their sources, in
+    agree with the constants compiled into them: v2, v3 and v3b all run on
+    the persistent item body scan_items.cuh (no source includes the old
+    block-per-CTA body scan_variants.cuh, which is gone), whose constants
+    and shared-memory layout the wrappers' caps mirror; the round extraction
+    of v3 and v3b is defined once, in scan_items.cuh; and each helper the
+    scan kernels share is defined once among their sources, in
     scan_common.cuh (the beam search, csrc/beam_search.cu, keeps its own
     copy helpers)."""
-    hdr = (kernels.CSRC / "scan_variants.cuh").read_text()
+    hdr = (kernels.CSRC / "scan_items.cuh").read_text()
     common = (kernels.CSRC / "scan_common.cuh").read_text()
+    assert not (kernels.CSRC / "scan_variants.cuh").exists()
     for name in ("scan_v2", "scan_v3", "scan_v3b"):
         assert name in kernels.SOURCES
         src = (kernels.CSRC / f"{name}.cu").read_text()
-        assert ('#include "scan_variants.cuh"' in src) == (name == "scan_v3"), name
-        assert ('#include "scan_items.cuh"' in src) == (name != "scan_v3"), name
+        assert '#include "scan_items.cuh"' in src, name
+        assert f"int {name}_config(" in src and f"int {name}_launch(" in src, name
     assert "probe_nested_while_launch" in (kernels.CSRC / "scan_v3b.cu").read_text()
-    assert "scan_v3b_config" in (kernels.CSRC / "scan_v3b.cu").read_text()
-    assert "scan_v2_config" in (kernels.CSRC / "scan_v2.cu").read_text()
-    for const, value in (("SUB", PT.SUB), ("DK", PT.DK), ("GROUP", PT.GROUP),
-                         ("MAX_SMEM", PT.MAX_SMEM)):
+    for const, value in (("TILE_STEP", I.SUB), ("GROUP", I.GROUP), ("MAX_SMEM", I.MAX_SMEM)):
         assert f"constexpr int {const} = {value};" in hdr
     assert "constexpr int MAX_K = 256;" in common
-    assert PT.MAX_TILE == 32 * PT.GROUP and PT.smem_bytes(1024, 32, 256) <= PT.MAX_SMEM
-    assert "(size_t)qb * tile * 4 + (size_t)qb * k * 8" in hdr
-    assert "(size_t)(DK * qb + SUB * (DK + 1)) * 4" in hdr
+    assert "constexpr int MAX_TILE = MAX_GROUPS * GROUP;" in hdr
+    assert I.MAX_TILE == 32 * I.GROUP and I.smem_bytes(1024, 32, 256) <= I.MAX_SMEM
+    assert ("MAX_STAGES * qb * dk * 4 + qb * k * 8 + qb * (tile / GROUP) * 8 + (3 * qb + 4) * 4"
+            in hdr)
     sources = {f.name: f.read_text() for f in sorted(kernels.CSRC.glob("scan_*.cu*"))}
-    assert len(sources) == 7
+    assert len(sources) == 6
+    assert not any('#include "scan_variants.cuh"' in text for text in sources.values())
+    assert {f for f, text in sources.items() if "run_fp32<RoundExtract<" in text} == {
+        "scan_v3.cu", "scan_v3b.cu"}
     for helper in (r"bool lex_less\(", r"void atomic_min_float\(", r"void warp_argmin\(",
                    r"void warp_insert\(", r"unsigned smem_u32\(", r"void copy16\(",
                    r"void copy4\(", r"void copy_commit\(", r"void copy_wait\(",
-                   r"__global__ void __launch_bounds__\(MERGE_WARPS \* 32\) merge_"):
+                   r"__global__ void __launch_bounds__\(MERGE_WARPS \* 32\) merge_",
+                   r"struct RoundExtract \{"):
         where = {f: len(re.findall(helper, text)) for f, text in sources.items()}
         where = {f: n for f, n in where.items() if n}
-        assert list(where) == ["scan_common.cuh"], (helper, where)
+        home = "scan_items.cuh" if "RoundExtract" in helper else "scan_common.cuh"
+        assert list(where) == [home], (helper, where)
+    assert len(re.findall(r"struct RoundExtract \{", hdr)) == 1
 
 
 def _copy_sources(tmp_path, monkeypatch):
@@ -364,17 +372,18 @@ def _copy_sources(tmp_path, monkeypatch):
 
 def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
     """A library's name changes with the headers its source includes and
-    with no other: an edit to scan_variants.cuh renames v3's build only; an
-    edit to the shared helpers (scan_common.cuh) renames the builds of the
-    production scan, v2, v3 and v3b, not the beam search's."""
+    with no other: an edit to the item body (scan_items.cuh) renames the
+    builds of v2, v3 and v3b only; an edit to the shared helpers
+    (scan_common.cuh) renames the builds of the production scan, v2, v3 and
+    v3b, not the beam search's."""
     _copy_sources(tmp_path, monkeypatch)
     names = kernels.SOURCES
     before = {n: kernels.library_path(n) for n in names}
     assert len(set(before.values())) == len(names)
-    with open(tmp_path / "scan_variants.cuh", "a") as f:
+    with open(tmp_path / "scan_items.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: kernels.library_path(n) for n in names}
-    assert [n for n in names if after[n] != before[n]] == ["scan_v3"]
+    assert [n for n in names if after[n] != before[n]] == ["scan_v2", "scan_v3", "scan_v3b"]
     with open(tmp_path / "scan_common.cuh", "a") as f:
         f.write("// edited\n")
     again = {n: kernels.library_path(n) for n in names}
