@@ -34,9 +34,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      time by CUDA events (for the beam kernel beside the bytes its
      expansions read and its longest query's steps), and the kernel held
      against its plain version on the main path's own inputs; for the scan
-     also its grid, its time at k = 1, 32 and 256, a 2,048-query sub-batch
-     that must equal its rows of the whole launch bit for bit, and the host
-     clock around the stages of batch_search; the scan variants also run
+     also its grid, its time at k = 1, 32 and 256, and a 2,048-query
+     sub-batch that must equal its rows of the whole launch bit for bit
+     (the host's stages of batch_search are the port's own spans, read by
+     the benchmark's traced runs); the scan variants also run
      on the prefilter's 2^-2 batch, timed beside the scan kernel;
   6. the trees, after the graph path (which saves its graph in a cache
      directory of the run): the Vamana-leaf RangeFilterTreeIndex at
@@ -1022,52 +1023,6 @@ def check_segmentation_invariance(torch, a, kw):
         f"tiles), bit for bit")
 
 
-def host_breakdown(torch, idx, queries, filters, qparams, nq):
-    """Host clock around the stages of one real PrefilterIndex.batch_search
-    call on a batch whose windows all take the scan. Marks, each after a
-    synchronise, sit at the entry and exit of the functions the call goes
-    through: the window bounds end where launch_range_bruteforce starts, the
-    query upload where base.scan_topk starts, the launch (wrapper and
-    kernel) where it returns, the fetch where the index's _finalize starts,
-    and finalize_output where it returns."""
-    from rangefilteredann_tpu_torch.models import base, prefilter
-
-    marks = []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
-
-    def marked(fn, at_entry, at_exit=None):
-        def wrapper(*a, **kw):
-            mark(at_entry)
-            out = fn(*a, **kw)
-            if at_exit:
-                mark(at_exit)
-            return out
-        return wrapper
-
-    real = prefilter.launch_range_bruteforce, base.scan_topk, base.windowed_bruteforce
-    prefilter.launch_range_bruteforce = marked(real[0], "window bounds")
-    base.scan_topk = marked(real[1], "query upload", "launch")
-    base.windowed_bruteforce = marked(real[2], "gather")  # must not run here
-    idx._finalize = marked(idx._finalize, "fetch", "finalize_output")
-    try:
-        for _ in range(2):  # the second pass is the one reported
-            marks.clear()
-            mark("start")
-            idx.batch_search(queries, filters, nq, qparams)
-    finally:
-        prefilter.launch_range_bruteforce, base.scan_topk, base.windowed_bruteforce = real
-        del idx._finalize
-    if [name for name, _ in marks[1:]] != ["window bounds", "query upload", "launch", "fetch",
-                                           "finalize_output"]:
-        raise AssertionError(f"the batch did not take the scan alone: {marks}")
-    total = (marks[-1][1] - marks[0][1]) * 1e3
-    log(f"host breakdown frac2^-2 [{nq} queries]: total {total:.3f} ms; " + "; ".join(
-        f"{name} {(t - marks[j][1]) * 1e3:.3f} ms" for j, (name, t) in enumerate(marks[1:])))
-
-
 def run_prefilter_path(torch, args, worst):
     """The prefilter main path at SIFT-1M scale. Returns its data, the scan
     inputs of its 2^-2 batch and the scan kernel's entry of the kernels
@@ -1174,7 +1129,6 @@ def run_prefilter_path(torch, args, worst):
             log(f"scan kernel {name} at other k: " + ", ".join(
                 f"k={kk} {ms:.3f} ms" for kk, ms in at_k.items()))
     check_segmentation_invariance(torch, *scan_inputs["frac2^-2"])
-    host_breakdown(torch, idx, queries, batches["frac2^-2"], qparams, args.nq)
     kernel_ms, plain_ms, bound_ms, bound_by = timed["frac2^-2"]
     return (points, labels, queries, batches), scan_inputs["frac2^-2"], {
         "name": "scan_topk",

@@ -42,6 +42,7 @@ from .models import (  # noqa: F401
 )
 from .filters import FilteredDataset, QueryFilter, csr_filters  # noqa: F401
 from .utils.stats import QueryStats, graph_stats  # noqa: F401
+from .utils.trace import SPANS, set_tracing  # noqa: F401
 from .wrapper import (  # noqa: F401
     build_vamana_index_fn,
     postfilter_vamana_constructor,

@@ -30,6 +30,7 @@ from ..ops.bruteforce import windowed_bruteforce
 from ..ops.scan import CHUNK, scan_topk
 from ..ops.topk import EMPTY_ID
 from ..utils.data import METRIC_L2
+from ..utils.trace import span
 
 # Windows up to this width use the per-query gather; wider ones the scan.
 # The JAX package's non-TPU value, kept until a measurement on the card sets
@@ -48,6 +49,30 @@ GATHER_BYTES_BUDGET = 1 << 30
 
 def next_pow2(x: int) -> int:
     return 1 << max(0, int(np.ceil(np.log2(max(1, x)))))
+
+
+# Tensors copied to and from the device by to_device / to_host since the
+# counts were last set to 0.
+UPLOADS = 0
+FETCHES = 0
+
+
+def to_device(dev, *arrays: np.ndarray) -> "list[torch.Tensor]":
+    """Copy host arrays to `dev`, in order: every upload of the batch
+    paths."""
+    global UPLOADS
+    with span("base.upload"):
+        UPLOADS += len(arrays)
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def to_host(*tensors: torch.Tensor) -> "list[np.ndarray]":
+    """Copy tensors to host arrays, in order: every fetch of the batch
+    paths (each waits for the work that makes its tensor)."""
+    global FETCHES
+    with span("base.fetch"):
+        FETCHES += len(tensors)
+        return [t.cpu().numpy() for t in tensors]
 
 
 def pad_batch(q: int) -> int:
@@ -87,10 +112,6 @@ def launch_range_bruteforce(
     widths = np.maximum(ends - starts, 0)
     out_d = np.full((nq, k), np.inf, dtype=np.float32)
     out_i = np.full((nq, k), EMPTY_ID, dtype=np.int64)
-
-    def upload(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     results = []  # (query indices, dists, ids) still on the device
     small = widths <= window_gather_max()
     # --- small windows: per-query gather, grouped by pow2 window class ---
@@ -104,12 +125,14 @@ def launch_range_bruteforce(
             max_q = next_pow2(max_q) // 2 if next_pow2(max_q) > max_q else max_q
             for lo in range(0, len(sel), max_q):
                 chunk = sel[lo : lo + max_q]
-                d, i = windowed_bruteforce(
-                    data, norms_sq, upload(queries_padded[rows_of(chunk)]),
-                    upload(starts[chunk].astype(np.int32)),
-                    upload(ends[chunk].astype(np.int32)),
-                    window=int(w), k=k, metric=metric, norm_col=norm_col,
-                )
+                q_dev, s_dev, e_dev = to_device(
+                    dev, queries_padded[rows_of(chunk)],
+                    starts[chunk].astype(np.int32), ends[chunk].astype(np.int32))
+                with span("gather.kernel"):
+                    d, i = windowed_bruteforce(
+                        data, norms_sq, q_dev, s_dev, e_dev,
+                        window=int(w), k=k, metric=metric, norm_col=norm_col,
+                    )
                 results.append((chunk, d, i))
     # --- large windows: the range-masked scan ---
     if (~small).any():
@@ -119,12 +142,11 @@ def launch_range_bruteforce(
         # and the padding past it are dead weight (half of d_pad at d=128)
         d_eff = d_pad if norm_col is None else norm_col
         qw = min(d_pad, -(-d_eff // CHUNK) * CHUNK)
-        d, i = scan_topk(
-            data, norms_sq, upload(queries_padded[rows_of(sel), :qw]),
-            upload(starts[sel].astype(np.int32)),
-            upload(ends[sel].astype(np.int32)),
-            k=k, metric=metric, d_eff=d_eff,
-        )
+        q_dev, s_dev, e_dev = to_device(
+            dev, queries_padded[rows_of(sel), :qw],
+            starts[sel].astype(np.int32), ends[sel].astype(np.int32))
+        d, i = scan_topk(data, norms_sq, q_dev, s_dev, e_dev,
+                         k=k, metric=metric, d_eff=d_eff)
         results.append((sel, d, i))
     return results, out_d, out_i
 
@@ -140,8 +162,7 @@ def finish_many_range_bruteforce(launches) -> "list[Tuple[np.ndarray, np.ndarray
     out = []
     for results, out_d, out_i in launches:
         for chunk, d, i in results:
-            out_d[chunk] = d.cpu().numpy()
-            out_i[chunk] = i.cpu().numpy()
+            out_d[chunk], out_i[chunk] = to_host(d, i)
         out.append((out_d, out_i))
     return out
 

@@ -15,6 +15,7 @@ import numpy as np
 from ..convert import pointset_from_arrays
 from ..params import BuildParams, QueryParams
 from ..utils.data import first_geq, make_pointset, pad_queries, sort_by_labels
+from ..utils.trace import span
 from .base import (
     finalize_output,
     finish_many_range_bruteforce,
@@ -65,17 +66,20 @@ class PrefilterIndex:
         return self._ps.device
 
     def _launch(self, queries, filters, k):
-        qp = pad_queries(queries, self._ps.d, self._ps.d_pad)
-        starts = first_geq(self._labels_sorted, filters[:, 0])
-        ends = first_geq(self._labels_sorted, filters[:, 1])
+        with span("prefilter.pad"):
+            qp = pad_queries(queries, self._ps.d, self._ps.d_pad)
+        with span("prefilter.window_bounds"):
+            starts = first_geq(self._labels_sorted, filters[:, 0])
+            ends = first_geq(self._labels_sorted, filters[:, 1])
         return launch_range_bruteforce(
             self._ps.data, self._ps.norms_sq, qp, starts, ends, k,
             self._ps.metric, norm_col=self._ps.norm_col)
 
     def _finalize(self, queries, dists, ids):
-        q_norms = np.einsum("qd,qd->q", queries, queries)
-        return finalize_output(dists, ids, self._decoding, q_norms,
-                               self._ps.metric, pad_id=-1)
+        with span("base.finalize"):
+            q_norms = np.einsum("qd,qd->q", queries, queries)
+            return finalize_output(dists, ids, self._decoding, q_norms,
+                                   self._ps.metric, pad_id=-1)
 
     def batch_search(
         self,
@@ -103,11 +107,12 @@ class PrefilterIndex:
         kernels are enqueued before any result is fetched. Returns
         [(ids, dists)] in batch order, each as batch_search returns it."""
         k = query_params.k
-        kept, launches = [], []
-        for queries, filters in batches:
-            queries = np.asarray(queries, dtype=np.float32)
-            kept.append(queries)
-            launches.append(self._launch(
-                queries, np.asarray(filters, dtype=np.float64), k))
-        return [self._finalize(q, d, i) for q, (d, i) in
-                zip(kept, finish_many_range_bruteforce(launches))]
+        with span("prefilter.batch"):
+            kept, launches = [], []
+            for queries, filters in batches:
+                queries = np.asarray(queries, dtype=np.float32)
+                kept.append(queries)
+                launches.append(self._launch(
+                    queries, np.asarray(filters, dtype=np.float64), k))
+            return [self._finalize(q, d, i) for q, (d, i) in
+                    zip(kept, finish_many_range_bruteforce(launches))]

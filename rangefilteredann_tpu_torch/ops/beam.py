@@ -37,6 +37,7 @@ import torch
 
 from .. import kernels
 from ..utils.data import METRIC_L2, METRIC_MIPS
+from ..utils.trace import span
 from .beam_search import batched_beam_search
 from .distances import fused_norm_distances, gathered_distances
 
@@ -201,7 +202,7 @@ def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
     starts = starts.to(dev, torch.int32).contiguous()
     act = active.to(dev, torch.uint8).contiguous()
     d0 = d0.contiguous()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("beam.kernel"):
         rc = _kernel()(
             nbr_vecs.data_ptr(), _DTYPE_CODES[nbr_vecs.dtype], nbrs.data_ptr(),
             nbr_norms.data_ptr(),

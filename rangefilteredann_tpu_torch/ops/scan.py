@@ -19,6 +19,7 @@ import torch
 
 from .. import kernels
 from ..utils.data import METRIC_L2, METRIC_MIPS
+from ..utils.trace import span
 from .bruteforce import scan_bruteforce
 
 # Kernel launches since the count was last set to 0 (launches only, never
@@ -216,32 +217,34 @@ def launch(lib, data, norms_sq, queries, starts, ends, k, metric, d_eff, stream,
     plan being segment_plan's."""
     dev = data.device
     n_rows, d_pad = data.shape
-    order, qs, s_s, e_s, d_stream = sorted_launch_args(
-        data, norms_sq, queries, starts, ends, k, d_eff, chunk=CHUNK,
-        dtypes=_DTYPE_CODES, name="scan")
-    q = qs.shape[0]
-    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out_d, out_i, None
-    code = _DTYPE_CODES[data.dtype]
-    slots = launch_config(lib, code, metric, k, device_index)["slots"]
-    if slots < 1:
-        raise RuntimeError(f"the scan kernel fits no SM at k={k}")
-    plan = segment_plan(s_s, e_s, n_rows, slots)
-    tile_begin, tile_end, prefix, seg, item_code, max_items = plan
-    part_d = torch.empty(max_items * QB * k, dtype=torch.float32, device=dev)
-    part_i = torch.empty(max_items * QB * k, dtype=torch.int32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    kth = torch.full((q,), float("inf"), dtype=torch.float32, device=dev)
-    rc = bind(lib)[0](
-        data.data_ptr(), code, n_rows, d_pad, d_stream, norms_sq.data_ptr(),
-        qs.data_ptr(), d_stream, s_s.data_ptr(), e_s.data_ptr(), q, k,
-        int(metric == METRIC_L2), n_rows, tile_begin.data_ptr(), tile_end.data_ptr(),
-        prefix.data_ptr(), seg.data_ptr(), item_code.data_ptr(), tile_begin.shape[0],
-        counter.data_ptr(), kth.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), order.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), slots, stream)
+    with span("scan.plan"):
+        order, qs, s_s, e_s, d_stream = sorted_launch_args(
+            data, norms_sq, queries, starts, ends, k, d_eff, chunk=CHUNK,
+            dtypes=_DTYPE_CODES, name="scan")
+        q = qs.shape[0]
+        out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+        if q == 0:
+            return out_d, out_i, None
+        code = _DTYPE_CODES[data.dtype]
+        slots = launch_config(lib, code, metric, k, device_index)["slots"]
+        if slots < 1:
+            raise RuntimeError(f"the scan kernel fits no SM at k={k}")
+        plan = segment_plan(s_s, e_s, n_rows, slots)
+        tile_begin, tile_end, prefix, seg, item_code, max_items = plan
+        part_d = torch.empty(max_items * QB * k, dtype=torch.float32, device=dev)
+        part_i = torch.empty(max_items * QB * k, dtype=torch.int32, device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        kth = torch.full((q,), float("inf"), dtype=torch.float32, device=dev)
+    with span("scan.kernel"):
+        rc = bind(lib)[0](
+            data.data_ptr(), code, n_rows, d_pad, d_stream, norms_sq.data_ptr(),
+            qs.data_ptr(), d_stream, s_s.data_ptr(), e_s.data_ptr(), q, k,
+            int(metric == METRIC_L2), n_rows, tile_begin.data_ptr(), tile_end.data_ptr(),
+            prefix.data_ptr(), seg.data_ptr(), item_code.data_ptr(), tile_begin.shape[0],
+            counter.data_ptr(), kth.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), order.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), slots, stream)
     if rc != 0:
         raise RuntimeError(f"scan_topk launch failed (code {rc})")
     return out_d, out_i, plan
