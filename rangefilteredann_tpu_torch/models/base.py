@@ -9,7 +9,11 @@ groups a batch's queries by window width: windows up to window_gather_max()
 gather their own rows (windowed_bruteforce, grouped in power-of-two classes
 and chunked by GATHER_BYTES_BUDGET); wider windows are midpoint-sorted and go
 to the range-masked scan, which is the hand-written kernel when the store
-lies on the card and its plain version when it lies on the CPU.
+lies on the card and its plain version when it lies on the CPU. The routing
+(launch_range_bruteforce) reads the widths on the host and takes the query
+rows and window bounds either as host arrays, which it slices and uploads a
+route at a time, or as tensors already on the device, which it indexes
+there.
 
 The JAX package's query cache (_QCACHE, qcache_fill), its packed result fetch
 (_pack_di) and its SCAN_CHUNK split exist to work around a remote TPU link
@@ -89,27 +93,55 @@ def pow2_classes(widths: np.ndarray, lo: int = MIN_CLASS, hi: int | None = None)
     return cls
 
 
+def _row_taker(dev, queries, starts, ends, q_rows):
+    """take(sel, width) -> the query rows (cut or zero-padded to `width`
+    columns), starts and ends of tasks `sel`, on `dev`. Host arrays (row
+    `q_rows[t]` for task t, where given) are sliced on the host and
+    uploaded; device tensors are indexed and padded on the device, by an
+    uploaded index where `sel` is not every task."""
+    if not isinstance(queries, torch.Tensor):
+        def take(sel, width):
+            rows = sel if q_rows is None else q_rows[sel]
+            return to_device(dev, queries[rows, :width], starts[sel].astype(np.int32),
+                             ends[sel].astype(np.int32))
+        return take
+
+    def take(sel, width):
+        if len(sel) == len(starts):
+            q, s, e = queries, starts, ends
+        else:
+            (i,) = to_device(dev, sel)
+            q, s, e = queries[i], starts[i], ends[i]
+        if q.shape[1] < width:
+            q = torch.nn.functional.pad(q, (0, width - q.shape[1]))
+        return q[:, :width], s, e
+    return take
+
+
 def launch_range_bruteforce(
     data: torch.Tensor,  # [n, d_pad] store
     norms_sq: torch.Tensor,  # [n]
-    queries_padded: np.ndarray,  # [Q, d_pad] f32 host
-    starts: np.ndarray,  # [Q] int64 host
-    ends: np.ndarray,  # [Q] int64 host
+    queries,  # [Q, d_pad] f32 host, or [Q, w] f32 on data's device (zero past d)
+    starts,  # [Q] int64 host, or int32 on data's device
+    ends,  # [Q] like starts
     k: int,
     metric: str,
     norm_col=None,  # fused norm column (PointSet.norm_col), if `data` has one
-    q_rows: np.ndarray | None = None,  # [Q] task -> row of queries_padded
+    q_rows: np.ndarray | None = None,  # [Q] task -> row of host queries
+    widths: np.ndarray | None = None,  # [Q] host ends - starts, given device bounds
 ):
     """Launch phase of batched_range_bruteforce: enqueues every kernel on the
     device's stream (returning before they finish) and returns a launch
-    record for finish_range_bruteforce."""
+    record for finish_range_bruteforce. The host widths route each window;
+    each route takes its rows and bounds as _row_taker gives them, from
+    host arrays or from tensors already on the device."""
     if norm_col is not None and norm_col < 0:
         norm_col = None  # integer stores carry no fused-norm column
-    rows_of = (lambda s: q_rows[s]) if q_rows is not None else (lambda s: s)
     dev = data.device
-    nq = len(starts)
-    d_pad = queries_padded.shape[1]
-    widths = np.maximum(ends - starts, 0)
+    take = _row_taker(dev, queries, starts, ends, q_rows)
+    widths = np.maximum(ends - starts if widths is None else widths, 0)
+    nq = len(widths)
+    d_pad = data.shape[1]
     out_d = np.full((nq, k), np.inf, dtype=np.float32)
     out_i = np.full((nq, k), EMPTY_ID, dtype=np.int64)
     results = []  # (query indices, dists, ids) still on the device
@@ -125,9 +157,7 @@ def launch_range_bruteforce(
             max_q = next_pow2(max_q) // 2 if next_pow2(max_q) > max_q else max_q
             for lo in range(0, len(sel), max_q):
                 chunk = sel[lo : lo + max_q]
-                q_dev, s_dev, e_dev = to_device(
-                    dev, queries_padded[rows_of(chunk)],
-                    starts[chunk].astype(np.int32), ends[chunk].astype(np.int32))
+                q_dev, s_dev, e_dev = take(chunk, d_pad)
                 with span("gather.kernel"):
                     d, i = windowed_bruteforce(
                         data, norms_sq, q_dev, s_dev, e_dev,
@@ -142,9 +172,7 @@ def launch_range_bruteforce(
         # and the padding past it are dead weight (half of d_pad at d=128)
         d_eff = d_pad if norm_col is None else norm_col
         qw = min(d_pad, -(-d_eff // CHUNK) * CHUNK)
-        q_dev, s_dev, e_dev = to_device(
-            dev, queries_padded[rows_of(sel), :qw],
-            starts[sel].astype(np.int32), ends[sel].astype(np.int32))
+        q_dev, s_dev, e_dev = take(sel, qw)
         d, i = scan_topk(data, norms_sq, q_dev, s_dev, e_dev,
                          k=k, metric=metric, d_eff=d_eff)
         results.append((sel, d, i))

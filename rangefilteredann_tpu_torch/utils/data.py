@@ -6,7 +6,8 @@ rows padded to a SCAN_ROW_PAD multiple (all-zero, norm 0), columns padded to
 a LANE multiple. Float stores carry ||x||^2 in column `d` (`norm_col`); int8
 and uint8 stores stay in their own dtype with `norm_col = -1` and exact
 integer square sums in `norms_sq`. Host planning (labels, windows) stays
-numpy, as in the JAX package.
+numpy, as in the JAX package, except the prefilter's window bounds, which
+first_geq searches on the store's device.
 """
 
 from __future__ import annotations
@@ -203,12 +204,29 @@ def sort_by_labels(
     return points[order], labels[order].astype(np.float64), order.astype(np.int64)
 
 
-def first_geq(labels_sorted: np.ndarray, values) -> np.ndarray:
+def first_geq(labels_sorted, values):
     """Index of the first label >= value (ref: src/tree_utils.h:20-37).
 
     Vectorized over `values`. Equals len(labels_sorted) when value exceeds all.
+    Given tensors (labels from device_labels, values of the same dtype), the
+    search runs on their device and returns int64 tensors; given arrays, it
+    runs in numpy. Both give the same integers: a NaN value gets the number
+    of non-NaN labels from either (numpy sorts NaN after every number, and
+    torch's binary search never stops before a NaN value), which is why
+    device_labels leaves out the NaN labels that a label sort puts last.
     """
+    if isinstance(labels_sorted, torch.Tensor):
+        return torch.searchsorted(labels_sorted, values, side="left")
     return np.searchsorted(labels_sorted, values, side="left")
+
+
+def device_labels(labels_sorted: np.ndarray, device) -> torch.Tensor:
+    """The float64 labels that first_geq searches on `device`: those before
+    the first NaN (a label sort puts NaN labels last), for which torch's
+    search gives numpy's answer over all of them."""
+    n = len(labels_sorted) - int(np.isnan(labels_sorted).sum())
+    return torch.from_numpy(np.ascontiguousarray(
+        labels_sorted[:n], dtype=np.float64)).to(device)
 
 
 def label_range_to_window(

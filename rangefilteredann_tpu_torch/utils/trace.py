@@ -11,7 +11,8 @@ overlap.
 The counters beside them are module-level ints that count always:
 `models.base.UPLOADS` and `FETCHES` (tensors copied to and from the device),
 `models.postfilter_vamana.ROUNDS` (doubling rounds), `ops.scan.SCAN_LAUNCHES`
-and `ops.beam.BEAM_LAUNCHES` (kernel launches).
+and `ops.beam.BEAM_LAUNCHES` (kernel launches), `models.prefilter.DEVICE_PLANS`
+(batches whose window bounds were searched on the store's device).
 """
 
 from __future__ import annotations

@@ -92,6 +92,53 @@ def test_first_geq_and_label_windows_match():
         np.testing.assert_array_equal(a, b)
 
 
+BOUND_CASES = ["duplicated", "equal", "below", "above", "inf", "ulp", "nan",
+               "nan_labels"]
+
+
+def bound_case(case):
+    """(sorted labels, values) for one case of the window-bound search."""
+    rng = np.random.default_rng(29)
+    labels = np.sort(np.round(rng.uniform(size=400), 2))  # ties at every 0.01
+    values = {
+        "duplicated": labels[np.nonzero(labels[1:] == labels[:-1])[0]],
+        "equal": labels,
+        "below": labels[0] - rng.uniform(1e-9, 1, 50),
+        "above": labels[-1] + rng.uniform(1e-9, 1, 50),
+        "inf": np.array([-np.inf, np.inf, -np.inf]),
+        "ulp": np.concatenate([np.nextafter(labels, -np.inf),
+                               np.nextafter(labels, np.inf)]),
+        "nan": np.array([np.nan, 0.5, np.nan, -np.inf]),
+    }
+    if case == "nan_labels":  # a label sort puts NaN labels last
+        return (np.concatenate([labels, [np.nan] * 3]),
+                np.concatenate([values[c] for c in BOUND_CASES[:-1]]))
+    return labels, values[case]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("case", BOUND_CASES)
+def test_first_geq_on_a_tensor_matches_numpy(case, device):
+    """first_geq over device_labels searches on the tensors' device and
+    gives np.searchsorted(side="left")'s integers, one for one, on the
+    values alone and on [nq, 2] filters. A NaN value gets the number of
+    non-NaN labels on both paths."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    labels, values = bound_case(case)
+    on_dev = P.device_labels(labels, device)
+    assert on_dev.dtype == torch.float64 and on_dev.device.type == device
+    for v in (values, np.stack([values, values[::-1]], 1)):
+        want = np.searchsorted(labels, v, side="left")
+        got = P.first_geq(on_dev, torch.from_numpy(v).to(device))
+        assert got.device.type == device and got.dtype == torch.int64
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        np.testing.assert_array_equal(P.first_geq(labels, v), want)
+    if case in ("nan", "nan_labels"):
+        n_real = int((~np.isnan(labels)).sum())
+        assert (P.first_geq(labels, values)[np.isnan(values)] == n_real).all()
+
+
 def test_pad_queries_and_metric_names():
     q = np.random.default_rng(17).normal(size=(5, 24))
     np.testing.assert_array_equal(J.pad_queries(q, 24, 128),

@@ -448,7 +448,9 @@ def test_memory_footprint_counts_each_storage_once():
     idx.extra = torch.zeros(1000)
     assert p_mem.device_bytes(idx) == want + 4000
     pre = P.PrefilterIndex(x, labels, device="cpu")
-    assert p_mem.device_bytes(pre) == j_bytes(J.PrefilterIndex(x, labels))
+    # the port's prefilter also keeps its sorted labels (float64) on the device,
+    # where it searches its window bounds
+    assert p_mem.device_bytes(pre) == j_bytes(J.PrefilterIndex(x, labels)) + labels.nbytes
 
 
 def _store_of(pre):
@@ -468,7 +470,7 @@ def test_memory_study_drivers(tmp_path, monkeypatch, capsys):
     lines = (tmp_path / "results" / "memory.csv").read_text().splitlines()
     assert lines[0] == "method,dataset,memory,hbm_bytes"
     assert lines[1].startswith("prefiltering,toy-8-euclidean,")
-    assert int(lines[1].split(",")[3]) == 4096 * 128 * 4 + 4096 * 4
+    assert int(lines[1].split(",")[3]) == 4096 * 128 * 4 + 4096 * 4 + 500 * 8  # + labels
     started = []
     monkeypatch.setattr(p_allmem.subprocess, "run",
                         lambda cmd: started.append(cmd) or subprocess.CompletedProcess(cmd, 0))

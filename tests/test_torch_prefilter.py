@@ -15,6 +15,8 @@ import pytest
 import rangefilteredann_tpu as J
 import rangefilteredann_tpu_torch as P
 from rangefilteredann_tpu_torch.models import base as PBASE
+from rangefilteredann_tpu_torch.models import prefilter as PPRE
+from rangefilteredann_tpu_torch.utils.data import pad_queries
 
 RTOL, ATOL = 1e-5, 1e-4
 FLT_MAX = np.finfo(np.float32).max
@@ -84,6 +86,39 @@ def test_batch_search_many_matches_jax():
     single = pidx.batch_search(*batches[1], 40, P.build_query_params(10, 10))
     for a, b in zip(single, got[1]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+def test_batch_search_many_plans_on_the_device(monkeypatch, kind):
+    """Three batches whose windows take both routes (the gather up to 64
+    points, the scan past them): the answers equal, bit for bit, those of
+    the host-array entry given numpy's bounds and padded queries, and the
+    JAX package's (ids exactly, distances bit for bit on the integer store,
+    within the parity bar on the float one, whose products differ); the
+    bounds of all three come down in one fetch, after every batch's search,
+    and DEVICE_PLANS counts each batch."""
+    monkeypatch.setattr(PBASE, "WINDOW_GATHER_MAX", 64)
+    pts, labels, _, _ = _data(kind, seed=21)
+    batches = [_data(kind, seed=60 + s, nq=40)[2:] for s in range(3)]
+    want = J.PrefilterIndex(pts, labels).batch_search_many(
+        batches, J.build_query_params(10, 10))
+    pidx = P.PrefilterIndex(pts, labels, device="cpu")
+    fetched, real = [], PPRE.to_host
+    monkeypatch.setattr(PPRE, "to_host", lambda *t: (
+        fetched.append((len(t), PPRE.DEVICE_PLANS)), real(*t))[1])
+    before = PPRE.DEVICE_PLANS
+    got = pidx.batch_search_many(batches, P.build_query_params(10, 10))
+    assert fetched == [(1, before + 3)] and PPRE.DEVICE_PLANS == before + 3
+    ps, ls = pidx._ps, pidx._labels_sorted
+    for (q, f), w, g in zip(batches, want, got):
+        assert_same_results(w, g, exact_dists=kind != "float")
+        d, i = PBASE.batched_range_bruteforce(
+            ps.data, ps.norms_sq, pad_queries(q, ps.d, ps.d_pad),
+            np.searchsorted(ls, f[:, 0]), np.searchsorted(ls, f[:, 1]), 10,
+            ps.metric, norm_col=ps.norm_col)
+        host = PBASE.finalize_output(d, i, pidx._decoding, np.einsum("qd,qd->q", q, q),
+                                     ps.metric, pad_id=-1)
+        assert_same_results(host, g, exact_dists=True)
 
 
 @pytest.mark.parametrize("gather_max", [4096, 16])
