@@ -5,7 +5,11 @@ what only the card has is rewritten for the stand-in: cp.async copies
 become copies made at once (their waits and commits go), an mma.sync bf16
 becomes emu_mma_m16n8k16_bf16, the extern shared array a CTA's emulated
 shared memory, and a launch `kern<<<...>>>(` (the persistent kernels') runs
-its CTAs all at once, any other launch one CTA after another.
+its CTAs all at once, each on an OS thread of its own, any other launch one
+CTA after another on the calling thread. A CTA's CUDA threads are fibers on
+its OS thread; a barrier that only part of its threads reach aborts the
+process with a message (cuda_runtime.h), so a test that may reach one runs
+the launch in a process of its own.
 """
 
 import ctypes

@@ -9,6 +9,8 @@ beam kernel's CPU path against the Pallas kernel in TPU interpret mode. Ids
 and counters must match exactly, distances within rtol 1e-5 / atol 1e-4.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,8 @@ cases hold them: at most 2% of ids differ, and no frontier holds an id twice
 (the hub case meets its start again with a second distance).
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import ctypes
 import re
 import shutil

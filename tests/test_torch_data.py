@@ -5,6 +5,8 @@ port's store must be bit-identical to the JAX PointSet (same padding, same
 fused norm column, same norms), and the host helpers must agree exactly.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

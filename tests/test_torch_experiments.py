@@ -12,6 +12,8 @@ JAX package's answers on the same inputs. Port modules run on the CPU with
 torch on one thread, as the other port test files do.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import csv
 import math
 import os
@@ -63,16 +65,6 @@ DRV_ARGS = ["--dataset", DRV_NAME, "--data_folder", "data",
             "--three_split"]
 DRV_METHODS = ("prefiltering", "postfiltering", "vamana-tree",
                "optimized-postfiltering", "smart-combined", "three-split")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU paths are many small torch ops: one thread each keeps
-    them from contending with the other test workers' threads."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 # ------------------------------------------------------------ generation
@@ -555,8 +547,7 @@ def test_experiments_import_no_jax(tmp_path):
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     assert len(os.listdir(tmp_path)) == 7

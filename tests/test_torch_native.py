@@ -10,6 +10,8 @@ Python planner and as the JAX package's planner, for every query method and
 both leaves.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 

@@ -6,6 +6,8 @@ tests/test_pallas.py): the two sides sum float32 products in different
 orders. The Pallas scan runs in interpret mode, as its own tests run it.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -10,6 +10,8 @@ tests/test_vamana.py, to the reverse-edge group-by oracle, and to an
 identical graph after a checkpoint/resume.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 import subprocess
 import sys

@@ -6,6 +6,8 @@ port (per-query gather and range-masked scan) are driven by lowering its own
 window_gather_max; the JAX side keeps its routing, since both are exact.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import subprocess
 import sys
 

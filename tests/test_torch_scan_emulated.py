@@ -22,6 +22,8 @@ earlier ones (a bound that dropped a tie at the k-th distance fails the
 dup16 split case there).
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ package's scan_bruteforce on the same inputs; values on the grid j/8 make
 every distance exact, and repeated points make ties across segments.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -3,7 +3,7 @@
 csrc/scan_v2.cu runs only on the card, where no test runs. Here g++
 compiles it with the headers it includes (the persistent item body
 csrc/scan_items.cuh, which v3b shares, and csrc/scan_common.cuh) against
-tests/cuda_emu/cuda_runtime.h: a std::thread per CUDA thread, barriers for
+tests/cuda_emu/cuda_runtime.h: a fiber per CUDA thread, barriers for
 a warp's collectives, cp.async copies made at once, and an mma.sync
 m16n8k16 bf16 stand-in that takes and gives its fragments in the PTX
 layout. The launch is the wrapper's own (tools/scan_items.launch: the
@@ -22,6 +22,8 @@ items than CTAs, those also with the items handed out last first, so that a
 block's later segments publish their k-th distances before its earlier ones
 run. Then scan_v2_config: the layout the caps compute, and what it refuses.
 """
+
+from . import torch_threads  # noqa: F401  (first: one torch thread)
 
 import ctypes
 
@@ -43,16 +45,6 @@ from .cuda_emu import emulate
 from .test_torch_scan_variants import load_jax_tool
 
 EMU_SMS = 2  # tests/cuda_emu/cuda_runtime.h EMU_SMS, one CTA each
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: these are many small ops, and the suite runs
-    files side by side."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

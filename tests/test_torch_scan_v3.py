@@ -3,7 +3,7 @@
 csrc/scan_v3.cu runs only on the card, where no test runs. Here g++ compiles
 it with the headers it includes (the persistent item body
 csrc/scan_items.cuh, which v2 and v3b share, and csrc/scan_common.cuh)
-against tests/cuda_emu/cuda_runtime.h (a std::thread per CUDA thread,
+against tests/cuda_emu/cuda_runtime.h (a fiber per CUDA thread,
 barriers for a warp's collectives, cp.async copies made at once), and runs
 it through the wrapper's own launch (tools/scan_items.launch: the midpoint
 sort, the plan, the scratch, the ctypes call) on CPU tensors, on the cases
@@ -17,6 +17,8 @@ and the JAX package's scan_bruteforce, and on two cases the JAX package's
 tools/exp_scan3.scan_v3 in interpret mode. Then scan_v3_config: the layout
 the caps compute, and what it refuses.
 """
+
+from . import torch_threads  # noqa: F401  (first: one torch thread)
 
 import ctypes
 
@@ -42,16 +44,6 @@ EMU_SMS = 2  # tests/cuda_emu/cuda_runtime.h EMU_SMS, one CTA each
 # cases also held against the JAX v3 kernel (which takes whole blocks of
 # queries: the first n queries of each case)
 JAX_CASES = {"qb8-l2-k10-d24": 40, "qb16-mips-k10-d24": 32}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: these are many small ops, and the suite runs
-    files side by side."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

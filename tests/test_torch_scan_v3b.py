@@ -14,7 +14,7 @@ csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
   --dups data, where ties decide the order;
 * the kernel's own source with the headers it includes (the item body
   csrc/scan_items.cuh, csrc/scan_common.cuh), compiled by g++ against
-  tests/cuda_emu/cuda_runtime.h (a std::thread per CUDA thread, barriers
+  tests/cuda_emu/cuda_runtime.h (a fiber per CUDA thread, barriers
   for a warp's collectives, cp.async copies made at once), through the
   wrapper's own launch (tools/scan_items.launch: the midpoint sort, the
   plan, the scratch, the ctypes call) on CPU tensors. On grid-valued data (values
@@ -33,6 +33,8 @@ csrc/scan_v3b.cu runs only on the card, where no test runs. Here:
   scalar path for a misaligned tensor), through the wrapper's own launch
   (exp_scan3b.probe_launch), equal to probe_nested_while_plain.
 """
+
+from . import torch_threads  # noqa: F401  (first: one torch thread)
 
 import ctypes
 
@@ -55,16 +57,6 @@ from rangefilteredann_tpu_torch.utils.data import make_pointset, pad_queries
 from .cuda_emu import emulate
 
 EMU_SMS = 2  # tests/cuda_emu/cuda_runtime.h EMU_SMS, one CTA each
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: these are many small ops, and the suite runs
-    files side by side."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,8 @@ grid-valued data (values j/8, every product and sum exact) the bf16 pass
 must match bit for bit.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import importlib.util
 import re
 import pathlib

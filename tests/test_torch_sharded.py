@@ -13,6 +13,8 @@ directory and loaded by the port. Ids must match exactly, distances within
 rtol 1e-5 / atol 1e-4, counters exactly.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch
@@ -37,16 +39,6 @@ RTOL, ATOL = 1e-5, 1e-4
 N, D, NQ = 2000, 16, 32
 CUTOFF, SPLIT, SEED = 300, 3, 2  # rows of 1, 3 and 9 buckets
 METHODS = ("fenwick", "optimized_postfilter", "three_split")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU paths are many small torch ops: one thread each keeps
-    them from contending with the other test workers' threads."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _bp(pkg, cache=""):

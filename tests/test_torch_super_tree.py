@@ -12,6 +12,8 @@ and with the Python one. On the CPU no row carries inline blocks (as in the
 JAX package); a test attaches them to reach the beam kernel's route.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 import shutil
 import subprocess
@@ -112,16 +114,6 @@ def recall(ids, dists, gt_ids):
         hits += len(want & set(ids[i][dists[i] < FLT_MAX].astype(int).tolist()))
         tot += len(want)
     return hits / max(tot, 1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU paths are many small torch ops: one thread each keeps
-    them from contending with the other test workers' threads."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture
@@ -462,7 +454,6 @@ def test_new_modules_import_no_jax(tmp_path):
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"

@@ -10,9 +10,10 @@ the root shim's, and one class of each family answers like its JAX
 counterpart, the graph families on shared caches.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
-import torch
 
 import window_ann as JWA
 from rangefilteredann_tpu import cli as jcli
@@ -34,16 +35,6 @@ from .torch_native_bridge import load_reference_bridge
 
 RTOL, ATOL = 1e-5, 1e-4
 FLT_MAX = np.finfo(np.float32).max
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU paths are many small torch ops: one thread each keeps
-    them from contending with the other test workers' threads."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _bytes(path):

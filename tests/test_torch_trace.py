@@ -3,6 +3,8 @@ sizes, under torch.profiler: with tracing off no span is recorded, outputs
 are bit-identical with it on and off, each path opens the spans it should,
 nested in their parents, and the counters rise by what the code predicts."""
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import re
 from pathlib import Path
 
@@ -19,16 +21,6 @@ from wsbench.spans import BREAKDOWN_SPANS
 
 PKG = Path(P.__file__).resolve().parent
 N, D, NQ, K = 400, 16, 8, 5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's CPU paths are many small ops: one thread keeps them fast
-    beside the suite's other workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

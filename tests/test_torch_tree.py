@@ -12,6 +12,8 @@ float64 oracle. On the CPU no row carries inline blocks (as in the JAX
 package); a test attaches them to reach the beam kernel's route.
 """
 
+from . import torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 import shutil
 import subprocess
@@ -365,6 +367,17 @@ def test_device_none_means_the_card():
                                cutoff=4, leaf="prefilter")
 
 
+def test_suite_runs_torch_on_one_thread():
+    """tests/torch_threads.py, imported first, gives the port's tests one
+    torch thread: this file sets none of its own, and a Python process that
+    a test starts, as test_tree_path_imports_no_jax starts one, inherits it."""
+    assert torch.get_num_threads() == 1
+    out = subprocess.run([sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1"
+
+
 def test_tree_path_imports_no_jax():
     """Building and searching a CPU tree (native planners included) loads
     neither jax nor any module of the JAX package."""
@@ -383,7 +396,6 @@ def test_tree_path_imports_no_jax():
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
