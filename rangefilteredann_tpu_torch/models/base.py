@@ -197,16 +197,18 @@ def finish_many_range_bruteforce(launches) -> "list[Tuple[np.ndarray, np.ndarray
 
 def batched_range_bruteforce(
     data, norms_sq, queries_padded, starts, ends, k, metric,
-    norm_col=None, q_rows=None,
+    norm_col=None, q_rows=None, widths: np.ndarray | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact k-NN within per-query sorted-index windows (launch + fetch).
+    """Exact k-NN within per-query sorted-index windows (launch + fetch),
+    over host arrays or device tensors as launch_range_bruteforce takes
+    them (the latter with their host `widths`).
 
     Returns (dists [Q, k] f32 shifted-L2, ids [Q, k] int64 sorted-order ids).
     Empty slots: id EMPTY_ID, dist +inf.
     """
     return finish_range_bruteforce(launch_range_bruteforce(
         data, norms_sq, queries_padded, starts, ends, k, metric,
-        norm_col=norm_col, q_rows=q_rows))
+        norm_col=norm_col, q_rows=q_rows, widths=widths))
 
 
 # Device bytes allowed for a graph's inline neighbour blocks. The JAX

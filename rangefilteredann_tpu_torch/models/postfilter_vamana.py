@@ -6,7 +6,10 @@ points; each query runs beam searches with beam doubling — filter the
 frontier to the label window, double the beam until >= k survive or the cap
 is hit — then one final search at beam * final_beam_multiply. The host
 regroups unfinished queries by their next beam, so every launch is one
-batch at one beam.
+batch at one beam. The launch plan is built on the store's device: the
+queries go up once as the caller gives them, the window bounds are
+searched in a device copy of the sorted labels, and each beam class
+gathers its rows, starts and windows there.
 
 On the card, every query-mode search the beam kernel covers (ops/beam.py,
 kernel_covers) goes to the kernel; the rest, and the build's searches, take
@@ -41,7 +44,16 @@ from ..parallel.sharded import (
     sharded_row_search,
 )
 from ..params import BuildParams, QueryParams
-from ..utils.data import first_geq, make_pointset, pad_queries, sort_by_labels
+# wsbench's traced runs wrap first_geq, pad_queries (not called here),
+# batched_range_bruteforce, finalize_output and the ops imported above by
+# their names in this module, so each stays importable from it.
+from ..utils.data import (  # noqa: F401
+    device_labels,
+    first_geq,
+    make_pointset,
+    pad_queries,
+    sort_by_labels,
+)
 from ..utils.trace import span
 from .base import (
     batched_range_bruteforce,
@@ -118,32 +130,75 @@ def run_beam_batch(ps, graph, qs: torch.Tensor, st: torch.Tensor,
         )
 
 
+def closed_windows(labels_dev: torch.Tensor, n_labels: int, filters: torch.Tensor):
+    """Sorted-id windows [win_lo, win_hi) of the closed label ranges
+    lo <= label <= hi of `filters` [nq, 2] f64, searched on the labels'
+    device (labels_dev from device_labels over `n_labels` sorted labels).
+    Returns int64 tensors: win_lo the first label >= lo (first_geq),
+    win_hi the first label > hi, as numpy's right-side search gives it
+    over all the labels: a NaN hi ends past the NaN labels that
+    device_labels leaves out."""
+    lo, hi = filters.t().contiguous()
+    win_hi = torch.searchsorted(labels_dev, hi, side="right")
+    return first_geq(labels_dev, lo), win_hi.masked_fill_(torch.isnan(hi), n_labels)
+
+
 def _dl(qp, graph) -> int:
     """Effective degree limit (0 = expand full adjacency rows)."""
     return qp.degree_limit if qp.degree_limit < graph.R else 0
 
 
+def _stage(dev, queries, starts, win_lo, win_hi, q_rows):
+    """A doubling call's launch inputs on `dev`, one row a task: (queries
+    [Q, d_pad] f32, starts [Q] int32, win_lo [Q] int32, win_hi [Q] int32).
+    Tensors already there are used as they are; host arrays go up in one
+    to_device call. Host queries with host q_rows are cut to the tasks'
+    rows first, so only those rows go up."""
+    if (q_rows is not None and not isinstance(queries, torch.Tensor)
+            and not isinstance(q_rows, torch.Tensor)):
+        queries, q_rows = queries[q_rows], None
+    xs = [queries, starts, win_lo, win_hi] + ([] if q_rows is None else [q_rows])
+    dtypes = (np.float32, np.int32, np.int32, np.int32, np.int64)
+    host = [i for i, x in enumerate(xs) if not isinstance(x, torch.Tensor)]
+    if host:
+        up = to_device(dev, *(np.asarray(xs[i]).astype(dtypes[i], copy=False)
+                              for i in host))
+        for i, t in zip(host, up):
+            xs[i] = t
+    q, s, lo, hi = xs[:4]
+    if q_rows is not None:
+        q = q[xs[4].long()]
+    return q, s.to(torch.int32), lo.to(torch.int32), hi.to(torch.int32)
+
+
 def doubling_postfilter(
     ps,
     graph,  # SlabGraph, or a bucket-sharded row (parallel.sharded.ShardedGraphRow)
-    queries_padded: np.ndarray,  # [Q, d_pad]
-    starts: np.ndarray,  # [Q] slab start ids
-    win_lo: np.ndarray,  # [Q] global sorted-id window (inclusive start)
-    win_hi: np.ndarray,  # [Q] (exclusive end)
+    queries_padded,  # [Q', d_pad] f32: host array, or tensor on the store's device
+    starts,  # [Q] slab start ids (host array or tensor, as every input)
+    win_lo,  # [Q] global sorted-id window (inclusive start)
+    win_hi,  # [Q] (exclusive end)
     qp: QueryParams,
     metric: str,
     stats=None,  # optional QueryStats; counters accumulate per source query
     stat_ids: Optional[np.ndarray] = None,  # [Q] source-query ids for stats
-    q_rows: Optional[np.ndarray] = None,  # [Q] task -> row of queries_padded
+    q_rows=None,  # [Q] task -> row of queries_padded (None: Q' == Q, row t)
     mesh=None,  # parallel.sharded.Mesh: split each batch over its devices
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Batched beam-doubling postfilter query (ref: postfilter_vamana.h:141-188),
     the JAX package's schedule step for step.
 
+    The inputs go to the store's device once, at entry (_stage). Each pass
+    (a round, the final pass) then uploads one index of every beam class it
+    launches, while the stream is empty, and each class gathers its rows
+    from the staged inputs on the card: no copy between a pass's first
+    launch and its first fetch waits for a kernel.
+
     Returns (ids [Q, k] global sorted ids, dists [Q, k]) — inf/EMPTY padded."""
     global ROUNDS
-    rows_of = (lambda s: q_rows[s]) if q_rows is not None else (lambda s: s)
-    nq = len(starts)
+    dev = ps.device
+    qd, sd, wl, wh = _stage(dev, queries_padded, starts, win_lo, win_hi, q_rows)
+    nq = len(sd)
     k = qp.k
     max_beam = min(qp.postfiltering_max_beam, MAX_SAFE_BEAM)
     exact_tail = qp.postfiltering_max_beam > max_beam
@@ -154,7 +209,6 @@ def doubling_postfilter(
     res_i = np.full((nq, k), int(EMPTY_ID), dtype=np.int64)
     res_d = np.full((nq, k), np.inf, dtype=np.float32)
     done = np.zeros(nq, dtype=bool)
-    dev = ps.device
     norm_col = ps.norm_col if ps.norm_col >= 0 else None
     # quantized-inline frontiers carry int8-rounded distances: filter a
     # k + slack superset and rerank it exactly
@@ -166,26 +220,38 @@ def doubling_postfilter(
             ids_for = stat_ids[sel] if stat_ids is not None else sel
             stat_buf.append((ids_for, idx, res.num_visited, res.dist_cmps))
 
-    def _search_and_filter(sel, b, collect_stats=True):
-        """Enqueue one search + window filter; returns device tensors
-        (counts, gids, dists) and the BeamResult, fetching nothing."""
+    def _gather(sels):
+        """Each class's (queries, starts, win_lo, win_hi) on the card, for
+        the classes `sels` of one pass: one uploaded index of all of them,
+        sliced a class; a class of every task takes the inputs whole."""
+        if not sels:
+            return []
+        (idx,) = to_device(dev, np.concatenate(sels))
+        out, lo = [], 0
+        for sel in sels:
+            i = idx[lo:lo + len(sel)]
+            lo += len(sel)
+            out.append((qd, sd, wl, wh) if len(sel) == nq
+                       else (qd[i], sd[i], wl[i], wh[i]))
+        return out
+
+    def _search_and_filter(sel, inputs, b, collect_stats=True):
+        """Enqueue one search + window filter over a class's gathered
+        inputs; returns device tensors (counts, gids, dists) and the
+        BeamResult, fetching nothing."""
+        qs, st, lo, hi = inputs
         with span("postfilter.search"):
-            qs_dev, st = to_device(
-                dev, queries_padded[rows_of(sel)].astype(np.float32, copy=False),
-                starts[sel].astype(np.int32, copy=False))
-            res = run_beam_batch(ps, graph, qs_dev, st, b, qp.limit, metric,
+            res = run_beam_batch(ps, graph, qs, st, b, qp.limit, metric,
                                  degree_limit=_dl(qp, graph), mesh=mesh)
             if collect_stats:
                 _collect(sel, np.arange(len(sel)), res)
-            wl, wh = to_device(dev, win_lo[sel].astype(np.int32),
-                               win_hi[sel].astype(np.int32))
             with span("beam_search.window_filter"):
                 counts, g, d = window_filter_topk(
                     res.frontier_ids, res.frontier_dists, graph.slab_to_global_dev,
-                    wl, wh, k + RERANK_SLACK if quant else k)
+                    lo, hi, k + RERANK_SLACK if quant else k)
             if quant:
                 with span("beam_search.rerank"):
-                    g, d = exact_rerank(ps.data, ps.norms_sq, qs_dev, g, k, metric,
+                    g, d = exact_rerank(ps.data, ps.norms_sq, qs, g, k, metric,
                                         norm_col=norm_col)
             return (counts, g, d), res
 
@@ -222,17 +288,18 @@ def doubling_postfilter(
                 _advance(sel_r[sub], counts_r[sub], ti_r[sub], td_r[sub])
                 _collect(sel_r, sub, s_res)
             beams = np.unique(cur_beam[~done])
+            sels = [np.nonzero(~done & (cur_beam == b))[0] for b in beams]
             # enqueue every beam class and its speculative final pass before any
             # fetch (ref semantics: the final search always runs after the loop,
             # postfilter_vamana.h:173-181)
             launches, spec = [], {}
-            for b in beams:
-                sel = np.nonzero(~done & (cur_beam == b))[0]
-                fut, _ = _search_and_filter(sel, b)
+            for b, sel, inputs in zip(beams, sels, _gather(sels)):
+                fut, _ = _search_and_filter(sel, inputs, b)
                 launches.append((sel, b, fut))
                 fb = min(b * qp.final_beam_multiply, max_beam)
                 if SPECULATE and fb > b and (first_round or fb == 2 * b):
-                    s_fut, s_res = _search_and_filter(sel, fb, collect_stats=False)
+                    s_fut, s_res = _search_and_filter(sel, inputs, fb,
+                                                      collect_stats=False)
                     spec[b] = (fb, s_fut, s_res)
             for sel, b, fut in launches:
                 enough = _advance(sel, *_fetch(fut))
@@ -252,25 +319,28 @@ def doubling_postfilter(
     if exact_tail and capped.any():
         with span("postfilter.exact_tail"):
             sel = np.nonzero(capped)[0]
+            # the only reader of host windows: the route and the stats
+            lo_h, hi_h = to_host(wl, wh)
+            widths = np.maximum(hi_h[sel] - lo_h[sel], 0).astype(np.int64)
+            qs, st, lo, hi = _gather([sel])[0]
             bf_d, bf_i = batched_range_bruteforce(
-                ps.data, ps.norms_sq, queries_padded,
-                win_lo[sel].astype(np.int64), win_hi[sel].astype(np.int64),
-                k, metric, norm_col=norm_col, q_rows=rows_of(sel))
+                ps.data, ps.norms_sq, qs, lo, hi, k, metric, norm_col=norm_col,
+                widths=widths)
             res_i[sel] = bf_i
             res_d[sel] = bf_d
             cur_beam[sel] = -1  # exact: no final pass
             if stats is not None:
                 ids_for = stat_ids[sel] if stat_ids is not None else sel
-                stats.increment_dist(ids_for, np.maximum(win_hi[sel] - win_lo[sel], 0))
+                stats.increment_dist(ids_for, widths)
     # final pass at beam * final_beam_multiply (ref: postfilter_vamana.h:173-181)
     # for queries whose speculative final did not apply
     with span("postfilter.final"):
         final_beam = np.minimum(cur_beam * qp.final_beam_multiply, max_beam)
         needs_final = (final_beam > cur_beam) & (cur_beam >= 0)
-        launches = []
-        for b in np.unique(final_beam[needs_final]):
-            sel = np.nonzero(needs_final & (final_beam == b))[0]
-            launches.append((sel, _search_and_filter(sel, b)[0]))
+        beams = np.unique(final_beam[needs_final])
+        sels = [np.nonzero(needs_final & (final_beam == b))[0] for b in beams]
+        launches = [(sel, _search_and_filter(sel, inputs, b)[0])
+                    for b, sel, inputs in zip(beams, sels, _gather(sels))]
         for sel, fut in launches:
             _, ti, td = _fetch(fut)
             res_i[sel] = ti.astype(np.int64)
@@ -321,6 +391,7 @@ class PostfilterVamanaIndex:
             points, np.asarray(filter_values))
         self._start = _start_vertex(pts_sorted, start_point)
         self._ps = make_pointset(pts_sorted, metric, device=device)
+        self._labels_dev = device_labels(self._labels_sorted, self._ps.device)
         self._fp = cache_fingerprint(self._labels_sorted, pts_sorted)
         self._graph = self._load_or_build(bp, seed, require_cache)
         self._mesh = None
@@ -339,6 +410,7 @@ class PostfilterVamanaIndex:
                                         device)
         self._labels_sorted = np.asarray(labels_sorted, dtype=np.float64)
         self._decoding = np.asarray(decoding, dtype=np.int64)
+        self._labels_dev = device_labels(self._labels_sorted, self._ps.device)
         self._graph = SlabGraph.from_nbrs(nbrs, device)
         self._start = int(start)
         self._mesh = None
@@ -405,18 +477,23 @@ class PostfilterVamanaIndex:
         is inclusive here (ref: postfilter_vamana.h:236-237), unlike the
         prefilter's."""
         with span("postfilter.batch"):
-            queries = np.asarray(queries, dtype=np.float32)[:num_queries]
-            filters = np.asarray(filters, dtype=np.float64)[:num_queries]
-            with span("postfilter.pad"):
-                qp_pad = pad_queries(queries, self._ps.d, self._ps.d_pad)
+            queries = np.ascontiguousarray(
+                np.asarray(queries, dtype=np.float32)[:num_queries])
+            filters = np.ascontiguousarray(
+                np.asarray(filters, dtype=np.float64)[:num_queries])
+            d, d_pad = self._ps.d, self._ps.d_pad
+            if queries.ndim != 2 or queries.shape[1] != d:
+                raise ValueError(f"queries must be [nq, {d}], got {queries.shape}")
+            q_dev, f_dev = to_device(self.device, queries, filters)
+            with span("postfilter.pad"):  # the zeros pad_queries writes
+                qp_pad = torch.nn.functional.pad(q_dev, (0, d_pad - d))
             with span("base.finalize"):
                 q_norms = np.einsum("qd,qd->q", queries, queries)
             with span("postfilter.window_bounds"):
-                win_lo = first_geq(self._labels_sorted, filters[:, 0])
-                win_hi = np.maximum(
-                    first_geq(self._labels_sorted, filters[:, 1]),
-                    np.searchsorted(self._labels_sorted, filters[:, 1], side="right"))
-            starts = np.full(num_queries, self._start, dtype=np.int32)
+                win_lo, win_hi = closed_windows(
+                    self._labels_dev, len(self._labels_sorted), f_dev)
+            starts = torch.full((num_queries,), self._start, dtype=torch.int32,
+                                device=self.device)
             ids, dists = doubling_postfilter(
                 self._ps, self._graph, qp_pad, starts, win_lo, win_hi,
                 query_params, self._ps.metric, stats=stats, mesh=self._mesh)

@@ -6,8 +6,8 @@ rows padded to a SCAN_ROW_PAD multiple (all-zero, norm 0), columns padded to
 a LANE multiple. Float stores carry ||x||^2 in column `d` (`norm_col`); int8
 and uint8 stores stay in their own dtype with `norm_col = -1` and exact
 integer square sums in `norms_sq`. Host planning (labels, windows) stays
-numpy, as in the JAX package, except the prefilter's window bounds, which
-first_geq searches on the store's device.
+numpy, as in the JAX package, except the window bounds of the prefilter and
+the postfilter, which first_geq searches on the store's device.
 """
 
 from __future__ import annotations

@@ -434,6 +434,9 @@ def test_memory_footprint_counts_each_storage_once():
                 storages[st.data_ptr()] = st.nbytes()
     want = sum(storages.values())
     assert want >= idx._ps.data.numel() * 4 + nbrs.nbytes
+    # the index also keeps its sorted labels (float64) on the device, where
+    # it searches its window bounds
+    want += labels.nbytes
     assert p_mem.device_bytes(idx) == want
     idx.views = [idx._ps.data[3:7], idx._ps.data.view(-1), idx._graph.nbrs_dev.t()]
     assert p_mem.device_bytes(idx) == want

@@ -32,7 +32,8 @@ from rangefilteredann_tpu_torch.models import postfilter_vamana as PPV
 from rangefilteredann_tpu_torch.models import vamana as PV
 from rangefilteredann_tpu_torch.ops import beam as PBEAM
 from rangefilteredann_tpu_torch.ops.robust_prune import robust_prune
-from rangefilteredann_tpu_torch.utils.data import make_pointset
+from rangefilteredann_tpu_torch.utils.data import (
+    device_labels, first_geq, make_pointset, pad_queries)
 from rangefilteredann_tpu_torch.utils.stats import QueryStats
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -227,6 +228,92 @@ def test_exact_tail_beyond_safe_beam(shared, monkeypatch, gt_fn):
     assert_same_results(
         s["jidx"].batch_search(queries, filters, nq, J.build_query_params(K, 10, **qp2)),
         pidx.batch_search(queries, filters, nq, P.build_query_params(K, 10, **qp2)))
+
+
+WINDOW_CASES = ["ties", "nan_labels", "nan_filters", "inf", "outside", "reversed"]
+
+
+def window_case(case):
+    """(sorted labels, [nq, 2] filters) for one case of the window search."""
+    rng = np.random.default_rng(31)
+    labels = np.sort(np.round(rng.uniform(size=300), 2))  # ties at every 0.01
+    lo = rng.uniform(-0.05, 1.05, 40)
+    f = {
+        "ties": np.stack([labels[0:296:8], labels[4:300:8]], 1),
+        "nan_labels": np.stack([lo, lo + 0.3], 1),
+        "nan_filters": np.array([[np.nan, 0.5], [0.2, np.nan], [np.nan, np.nan]]),
+        "inf": np.array([[-np.inf, np.inf], [-np.inf, 0.4], [0.6, np.inf],
+                         [np.inf, np.inf], [-np.inf, -np.inf]]),
+        "outside": np.array([[-2.0, -1.0], [1.5, 3.0], [-1.0, 3.0], [0.5, 9.0]]),
+        "reversed": np.stack([lo + 0.2, lo], 1),
+    }[case]
+    if case in ("nan_labels", "nan_filters", "inf"):  # NaN labels sort last
+        labels = np.concatenate([labels, [np.nan] * 4])
+    return labels, f
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_closed_windows_match_numpy(case):
+    """The device window search equals the three numpy searches it
+    replaces, np.maximum(first_geq(hi), searchsorted(hi, "right")) for the
+    end, on labels with ties and a NaN tail: NaN, infinite, out-of-range
+    and reversed filters included."""
+    labels, f = window_case(case)
+    lo, hi = PPV.closed_windows(device_labels(labels, "cpu"), len(labels),
+                                torch.from_numpy(f))
+    assert lo.dtype == hi.dtype == torch.int64
+    np.testing.assert_array_equal(lo.numpy(), first_geq(labels, f[:, 0]))
+    np.testing.assert_array_equal(hi.numpy(), np.maximum(
+        first_geq(labels, f[:, 1]), np.searchsorted(labels, f[:, 1], side="right")))
+
+
+@pytest.mark.parametrize("inputs", ["device", "device_rows_host", "host"])
+@pytest.mark.parametrize("tail", [False, True])
+def test_doubling_takes_host_arrays_or_device_tensors(shared, monkeypatch,
+                                                      inputs, tail):
+    """doubling_postfilter gives the same ids, distances and stats from host
+    arrays as from tensors on the store's device, with q_rows mapping tasks
+    to rows (repeats, reordering) and source-query stats ids; with the
+    exact tail, whose host windows are fetched only there."""
+    s = shared
+    if tail:
+        monkeypatch.setattr(PPV, "MAX_SAFE_BEAM", 16)
+    pidx = P.PostfilterVamanaIndex(s["points"], s["labels"], _bp(P, s["cache"]),
+                                   require_cache=True, device="cpu")
+    rng = np.random.default_rng(9)
+    nq = len(s["queries"])
+    qpad = pad_queries(s["queries"], D, pidx._ps.d_pad)
+    q_rows = rng.integers(0, nq, 48)
+    f = s["filters"][q_rows]
+    lo = first_geq(pidx._labels_sorted, f[:, 0])
+    hi = np.searchsorted(pidx._labels_sorted, f[:, 1], side="right")
+    starts = np.full(len(q_rows), pidx._start, dtype=np.int32)
+    qp = P.build_query_params(K, 10, final_beam_multiply=2)
+
+    tails = []
+    real_tail = PPV.batched_range_bruteforce
+    monkeypatch.setattr(PPV, "batched_range_bruteforce",
+                        lambda *a, **kw: tails.append(1) or real_tail(*a, **kw))
+
+    def run_with(q, st, wl, wh, rows):
+        stats = QueryStats(nq)
+        got = PPV.doubling_postfilter(pidx._ps, pidx._graph, q, st, wl, wh, qp, "l2",
+                                      stats=stats, stat_ids=q_rows, q_rows=rows)
+        return got, stats
+
+    want, want_stats = run_with(qpad, starts, lo, hi, q_rows)
+    t = torch.from_numpy
+    rows = q_rows if inputs == "device_rows_host" else t(q_rows)
+    if inputs == "host":  # tasks' rows cut on the host, no q_rows
+        got, got_stats = run_with(qpad[q_rows], starts, lo, hi, None)
+    else:
+        got, got_stats = run_with(t(qpad), t(starts), t(lo), t(hi), rows)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(want_stats.visited, got_stats.visited)
+    np.testing.assert_array_equal(want_stats.distances, got_stats.distances)
+    assert want_stats.visited[q_rows].min() > 0
+    assert len(tails) == (2 if tail else 0)  # the exact scan ran in both calls
 
 
 @pytest.fixture(scope="module")

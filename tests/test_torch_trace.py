@@ -72,12 +72,26 @@ def searched(idx, q, f, on=True):
     return ids, dists, events, dict(zip(("uploads", "fetches", "rounds"), counts))
 
 
-def parent(e):
-    """The nearest enclosing port span of an event."""
+def enclosing(e):
+    """The nearest enclosing port span event of an event, or None."""
     p = e.cpu_parent
     while p is not None and p.name not in trace.SPANS:
         p = p.cpu_parent
+    return p
+
+
+def parent(e):
+    """The name of the nearest enclosing port span of an event."""
+    p = enclosing(e)
     return None if p is None else p.name
+
+
+def inside(e, name):
+    """Whether an event lies inside a span of that name, at any depth."""
+    p = e.cpu_parent
+    while p is not None and p.name != name:
+        p = p.cpu_parent
+    return p is not None
 
 
 def test_span_names_are_the_ones_the_code_opens():
@@ -140,10 +154,10 @@ def test_postfilter(post, inline):
     assert np.array_equal(ids0, ids1) and np.array_equal(d0, d1)
     assert c0 == c1
     B, S, T = "postfilter.batch", "postfilter.search", "postfilter.exact_tail"
+    R, F = "postfilter.round", "postfilter.final"
     want = {B: {None}, "postfilter.pad": {B}, "postfilter.window_bounds": {B},
-            "base.finalize": {B}, "postfilter.round": {B}, T: {B}, "postfilter.final": {B},
-            S: {"postfilter.round", "postfilter.final"}, "base.upload": {S, T},
-            "base.fetch": {"postfilter.round", "postfilter.final", T},
+            "base.finalize": {B}, R: {B}, T: {B}, F: {B}, S: {R, F},
+            "base.upload": {B, R, F, T}, "base.fetch": {R, F, T},
             "beam_search.window_filter": {S}, "gather.kernel": {T}}
     want["beam.start" if inline else "beam_search.plain"] = {S}
     if inline == "int8":
@@ -152,12 +166,24 @@ def test_postfilter(post, inline):
     for name, ups in want.items():
         assert {parent(e) for e in ev1[name]} <= ups, name
     assert len(ev1["base.finalize"]) == 2  # the query norms, then finalize_output
-    searches, rounds = len(ev1[S]), len(ev1["postfilter.round"])
+    searches, rounds = len(ev1[S]), len(ev1[R])
     assert searches > rounds >= 2
-    tail = sum(parent(e) == T for e in ev1["base.upload"])  # the tail's launches
-    assert tail >= 1
-    assert c1 == {"uploads": 4 * searches + 3 * tail, "fetches": 3 * searches + 2 * tail,
-                  "rounds": rounds}
+    # no copy goes up between a pass's first launch and its first fetch
+    copies = ev1["base.upload"]
+    assert not any(inside(e, S) for e in copies)
+    # the queries and filters once at entry; one class index for each pass
+    # that launches, before its launches; the tail's index and gather chunks
+    entry = [e for e in copies if parent(e) == B]
+    launching = {id(enclosing(e)) for e in ev1[S]}
+    per_pass = [e for e in copies if parent(e) in (R, F)]
+    tail = sum(parent(e) == T for e in copies)
+    gathers = sum(parent(e) == T for e in ev1["gather.kernel"])
+    assert len(entry) == 1
+    assert sorted(id(enclosing(e)) for e in per_pass) == sorted(launching)
+    assert 1 <= tail <= 1 + gathers
+    # three tensors down a search; the tail's host windows, then two a launch
+    assert c1 == {"uploads": 2 + len(launching) + tail,
+                  "fetches": 3 * searches + 2 + 2 * gathers, "rounds": rounds}
 
 
 @pytest.mark.parametrize("spec", BREAKDOWN_SPANS, ids=lambda s: f"{s[1]}.{s[2]}")
