@@ -1657,7 +1657,7 @@ def super_breakdown(torch, tree, queries, filters, qparams, nq):
     def per_row(ps, g, *a, **kw):
         r = next(i for i, x in enumerate(tree._graphs) if x is g)
         route = "B2" if g.nbr_vecs is not None else "plain"
-        name = f"doubling row {r} ({len(kw['q_rows'])} queries, {route})"
+        name = f"doubling row {r} ({len(kw['stat_ids'])} queries, {route})"
         return marked(real[1], name)(ps, g, *a, **kw)
 
     spt.plan_row_inline = marked(real[0], "inline blocks")

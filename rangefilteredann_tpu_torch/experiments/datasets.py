@@ -104,7 +104,7 @@ def compute_ground_truths(
     """Exact filtered top-k through the port's prefilter routing on `device`
     (None: the card); the JAX package's compute_ground_truths_tpu. Label test
     is inclusive on both ends (ref: filter_generation_utils.py:155-160)."""
-    from ..models.base import batched_range_bruteforce
+    from ..models.base import batched_range_bruteforce, to_device
     from ..utils.data import make_pointset, pad_queries, sort_by_labels
 
     pts_sorted, labels_sorted, decoding = sort_by_labels(data, filter_values)
@@ -113,8 +113,9 @@ def compute_ground_truths(
     starts = np.searchsorted(labels_sorted, filter_ranges[:, 0], side="left")
     ends = np.searchsorted(labels_sorted, filter_ranges[:, 1], side="right")
     dists, ids = batched_range_bruteforce(
-        ps.data, ps.norms_sq, qpad, starts, ends, top_k, ps.metric,
-        norm_col=ps.norm_col,
+        ps.data, ps.norms_sq,
+        *to_device(ps.device, qpad, starts.astype(np.int32), ends.astype(np.int32)),
+        top_k, ps.metric, norm_col=ps.norm_col, widths=ends - starts,
     )
     assert np.isfinite(dists).all(), (
         "a query range holds fewer than top_k points; regenerate ranges"

@@ -10,9 +10,8 @@ gather their own rows (windowed_bruteforce, grouped in power-of-two classes
 and chunked by GATHER_BYTES_BUDGET); wider windows are midpoint-sorted and go
 to the range-masked scan, which is the hand-written kernel when the store
 lies on the card and its plain version when it lies on the CPU. The routing
-(launch_range_bruteforce) reads the widths on the host and takes the query
-rows and window bounds either as host arrays, which it slices and uploads a
-route at a time, or as tensors already on the device, which it indexes
+(launch_range_bruteforce) reads the widths on the host; the query rows and
+window bounds are tensors on the store's device, which each route indexes
 there.
 
 The JAX package's query cache (_QCACHE, qcache_fill), its packed result fetch
@@ -79,12 +78,6 @@ def to_host(*tensors: torch.Tensor) -> "list[np.ndarray]":
         return [t.cpu().numpy() for t in tensors]
 
 
-def pad_batch(q: int) -> int:
-    """Padded batch size for a q-query launch: pow2 up to 2048, then
-    2048-multiples (the JAX package's shape classes)."""
-    return next_pow2(max(q, 64)) if q <= 2048 else -(-q // 2048) * 2048
-
-
 def pow2_classes(widths: np.ndarray, lo: int = MIN_CLASS, hi: int | None = None):
     """Assign each width to the smallest power-of-two class >= width (>= lo)."""
     cls = np.maximum(lo, 1 << np.ceil(np.log2(np.maximum(widths, 1))).astype(np.int64))
@@ -93,53 +86,37 @@ def pow2_classes(widths: np.ndarray, lo: int = MIN_CLASS, hi: int | None = None)
     return cls
 
 
-def _row_taker(dev, queries, starts, ends, q_rows):
-    """take(sel, width) -> the query rows (cut or zero-padded to `width`
-    columns), starts and ends of tasks `sel`, on `dev`. Host arrays (row
-    `q_rows[t]` for task t, where given) are sliced on the host and
-    uploaded; device tensors are indexed and padded on the device, by an
-    uploaded index where `sel` is not every task."""
-    if not isinstance(queries, torch.Tensor):
-        def take(sel, width):
-            rows = sel if q_rows is None else q_rows[sel]
-            return to_device(dev, queries[rows, :width], starts[sel].astype(np.int32),
-                             ends[sel].astype(np.int32))
-        return take
-
-    def take(sel, width):
-        if len(sel) == len(starts):
-            q, s, e = queries, starts, ends
-        else:
-            (i,) = to_device(dev, sel)
-            q, s, e = queries[i], starts[i], ends[i]
-        if q.shape[1] < width:
-            q = torch.nn.functional.pad(q, (0, width - q.shape[1]))
-        return q[:, :width], s, e
-    return take
+def _take_rows(queries, starts, ends, sel, width):
+    """The query rows (cut or zero-padded to `width` columns), starts and
+    ends of tasks `sel`, indexed on their device by an uploaded index
+    where `sel` is not every task."""
+    if len(sel) != len(starts):
+        (i,) = to_device(queries.device, sel)
+        queries, starts, ends = queries[i], starts[i], ends[i]
+    if queries.shape[1] < width:
+        queries = torch.nn.functional.pad(queries, (0, width - queries.shape[1]))
+    return queries[:, :width], starts, ends
 
 
 def launch_range_bruteforce(
     data: torch.Tensor,  # [n, d_pad] store
     norms_sq: torch.Tensor,  # [n]
-    queries,  # [Q, d_pad] f32 host, or [Q, w] f32 on data's device (zero past d)
-    starts,  # [Q] int64 host, or int32 on data's device
-    ends,  # [Q] like starts
+    queries: torch.Tensor,  # [Q, w] f32 on data's device, zero past d
+    starts: torch.Tensor,  # [Q] int32 or int64 on data's device
+    ends: torch.Tensor,  # [Q] like starts
     k: int,
     metric: str,
     norm_col=None,  # fused norm column (PointSet.norm_col), if `data` has one
-    q_rows: np.ndarray | None = None,  # [Q] task -> row of host queries
-    widths: np.ndarray | None = None,  # [Q] host ends - starts, given device bounds
+    *,
+    widths: np.ndarray,  # [Q] int64 host ends - starts
 ):
     """Launch phase of batched_range_bruteforce: enqueues every kernel on the
     device's stream (returning before they finish) and returns a launch
-    record for finish_range_bruteforce. The host widths route each window;
-    each route takes its rows and bounds as _row_taker gives them, from
-    host arrays or from tensors already on the device."""
+    record for finish_many_range_bruteforce. The host widths route each
+    window; each route indexes its rows and bounds on the device."""
     if norm_col is not None and norm_col < 0:
         norm_col = None  # integer stores carry no fused-norm column
-    dev = data.device
-    take = _row_taker(dev, queries, starts, ends, q_rows)
-    widths = np.maximum(ends - starts if widths is None else widths, 0)
+    widths = np.maximum(widths, 0)
     nq = len(widths)
     d_pad = data.shape[1]
     out_d = np.full((nq, k), np.inf, dtype=np.float32)
@@ -157,7 +134,7 @@ def launch_range_bruteforce(
             max_q = next_pow2(max_q) // 2 if next_pow2(max_q) > max_q else max_q
             for lo in range(0, len(sel), max_q):
                 chunk = sel[lo : lo + max_q]
-                q_dev, s_dev, e_dev = take(chunk, d_pad)
+                q_dev, s_dev, e_dev = _take_rows(queries, starts, ends, chunk, d_pad)
                 with span("gather.kernel"):
                     d, i = windowed_bruteforce(
                         data, norms_sq, q_dev, s_dev, e_dev,
@@ -172,16 +149,11 @@ def launch_range_bruteforce(
         # and the padding past it are dead weight (half of d_pad at d=128)
         d_eff = d_pad if norm_col is None else norm_col
         qw = min(d_pad, -(-d_eff // CHUNK) * CHUNK)
-        q_dev, s_dev, e_dev = take(sel, qw)
+        q_dev, s_dev, e_dev = _take_rows(queries, starts, ends, sel, qw)
         d, i = scan_topk(data, norms_sq, q_dev, s_dev, e_dev,
                          k=k, metric=metric, d_eff=d_eff)
         results.append((sel, d, i))
     return results, out_d, out_i
-
-
-def finish_range_bruteforce(launch) -> Tuple[np.ndarray, np.ndarray]:
-    """Fetch phase: copy every launched result to the host and scatter it."""
-    return finish_many_range_bruteforce([launch])[0]
 
 
 def finish_many_range_bruteforce(launches) -> "list[Tuple[np.ndarray, np.ndarray]]":
@@ -196,19 +168,19 @@ def finish_many_range_bruteforce(launches) -> "list[Tuple[np.ndarray, np.ndarray
 
 
 def batched_range_bruteforce(
-    data, norms_sq, queries_padded, starts, ends, k, metric,
-    norm_col=None, q_rows=None, widths: np.ndarray | None = None,
+    data, norms_sq, queries, starts, ends, k, metric, norm_col=None, *,
+    widths: np.ndarray,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact k-NN within per-query sorted-index windows (launch + fetch),
-    over host arrays or device tensors as launch_range_bruteforce takes
-    them (the latter with their host `widths`).
+    over tensors on the store's device and their host `widths`, as
+    launch_range_bruteforce takes them.
 
     Returns (dists [Q, k] f32 shifted-L2, ids [Q, k] int64 sorted-order ids).
     Empty slots: id EMPTY_ID, dist +inf.
     """
-    return finish_range_bruteforce(launch_range_bruteforce(
-        data, norms_sq, queries_padded, starts, ends, k, metric,
-        norm_col=norm_col, q_rows=q_rows, widths=widths))
+    return finish_many_range_bruteforce([launch_range_bruteforce(
+        data, norms_sq, queries, starts, ends, k, metric, norm_col=norm_col,
+        widths=widths)])[0]
 
 
 # Device bytes allowed for a graph's inline neighbour blocks. The JAX

@@ -51,6 +51,7 @@ from .base import (
     cache_fingerprint,
     finalize_output,
     plan_row_inline,
+    to_device,
     whole_dataset_cache,
 )
 from .postfilter_vamana import doubling_postfilter
@@ -246,13 +247,15 @@ class SuperOptimizedPostfilterTree:
 
         out_i = np.full((num_queries, k), EMPTY_ID, dtype=np.int64)
         out_d = np.full((num_queries, k), np.inf, dtype=np.float32)
+        (q_dev,) = to_device(self._ps.device, qpad)  # one upload; rows index it
         for r in urows:
             sel = np.nonzero(rows == r)[0]
             g = self._res.touch(int(r))
-            starts = g.bucket_slab_offsets[buckets[sel]].astype(np.int32)
+            qi_dev, starts, lo, hi = to_device(
+                self._ps.device, sel, g.bucket_slab_offsets[buckets[sel]].astype(np.int32),
+                lo_idx[sel], hi_incl[sel])
             out_i[sel], out_d[sel] = doubling_postfilter(
-                self._ps, g, qpad, starts, lo_idx[sel].astype(np.int64),
-                hi_incl[sel].astype(np.int64), qp, self._ps.metric, stats=stats,
-                stat_ids=sel, q_rows=sel, mesh=self._mesh)
+                self._ps, g, q_dev[qi_dev], starts, lo, hi, qp, self._ps.metric,
+                stats=stats, stat_ids=sel, mesh=self._mesh)
         return finalize_output(out_d, out_i, self._decoding, q_norms,
                                self._ps.metric, pad_id=0)

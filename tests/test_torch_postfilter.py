@@ -125,20 +125,16 @@ def test_batch_search_matches_jax(shared, metric, start):
     assert (got[1][:, 0] < np.finfo(np.float32).max).any()
 
 
-def test_speculate_on_and_off_bit_identical(shared, monkeypatch):
-    """SPECULATE changes only when the final searches run: results are
-    bit-identical, and equal the JAX package's, counters included."""
+def test_speculative_finals_keep_jax_counters(shared):
+    """The speculative final searches change only when the final searches
+    run: results equal the JAX package's, counters included."""
     s = shared
     nq = len(s["queries"])
     pidx = P.PostfilterVamanaIndex(s["points"], s["labels"], _bp(P, s["cache"]),
                                    require_cache=True, device="cpu")
     stats = QueryStats(nq)
-    on = _search(pidx, P, s, stats=stats)
-    monkeypatch.setattr(PPV, "SPECULATE", False)
-    off = _search(pidx, P, s)
-    for a, b in zip(on, off):
-        np.testing.assert_array_equal(a, b)
-    assert_same_results(s["want"], off)
+    got = _search(pidx, P, s, stats=stats)
+    assert_same_results(s["want"], got)
     np.testing.assert_array_equal(stats.visited, s["jstats"].visited)
     np.testing.assert_array_equal(stats.distances, s["jstats"].distances)
     assert stats.visited.min() > 0
@@ -267,53 +263,53 @@ def test_closed_windows_match_numpy(case):
         first_geq(labels, f[:, 1]), np.searchsorted(labels, f[:, 1], side="right")))
 
 
-@pytest.mark.parametrize("inputs", ["device", "device_rows_host", "host"])
+@pytest.mark.parametrize("rows", ["repeated", "identity", "subset"])
 @pytest.mark.parametrize("tail", [False, True])
-def test_doubling_takes_host_arrays_or_device_tensors(shared, monkeypatch,
-                                                      inputs, tail):
-    """doubling_postfilter gives the same ids, distances and stats from host
-    arrays as from tensors on the store's device, with q_rows mapping tasks
-    to rows (repeats, reordering) and source-query stats ids; with the
-    exact tail, whose host windows are fetched only there."""
+def test_doubling_on_task_rows_matches_jax(shared, monkeypatch, rows, tail):
+    """doubling_postfilter over tensors on the store's device, one query row
+    a task (q_dev[rows], as the trees pass them), gives the JAX package's
+    ids, distances and stats from its host arrays and q_rows: with rows
+    repeated and reordered, every row once, or a strict subset, and with
+    the exact tail, whose host windows are fetched only there."""
     s = shared
     if tail:
+        monkeypatch.setattr(JPV, "MAX_SAFE_BEAM", 16)
         monkeypatch.setattr(PPV, "MAX_SAFE_BEAM", 16)
+    jidx = s["jidx"]
     pidx = P.PostfilterVamanaIndex(s["points"], s["labels"], _bp(P, s["cache"]),
                                    require_cache=True, device="cpu")
     rng = np.random.default_rng(9)
     nq = len(s["queries"])
+    q_rows = {"repeated": rng.integers(0, nq, 48), "identity": np.arange(nq),
+              "subset": np.sort(rng.choice(nq, 40, replace=False))}[rows]
     qpad = pad_queries(s["queries"], D, pidx._ps.d_pad)
-    q_rows = rng.integers(0, nq, 48)
     f = s["filters"][q_rows]
     lo = first_geq(pidx._labels_sorted, f[:, 0])
     hi = np.searchsorted(pidx._labels_sorted, f[:, 1], side="right")
     starts = np.full(len(q_rows), pidx._start, dtype=np.int32)
-    qp = P.build_query_params(K, 10, final_beam_multiply=2)
+    q_norms = np.einsum("qd,qd->q", s["queries"], s["queries"])[q_rows]
 
     tails = []
     real_tail = PPV.batched_range_bruteforce
     monkeypatch.setattr(PPV, "batched_range_bruteforce",
                         lambda *a, **kw: tails.append(1) or real_tail(*a, **kw))
-
-    def run_with(q, st, wl, wh, rows):
-        stats = QueryStats(nq)
-        got = PPV.doubling_postfilter(pidx._ps, pidx._graph, q, st, wl, wh, qp, "l2",
-                                      stats=stats, stat_ids=q_rows, q_rows=rows)
-        return got, stats
-
-    want, want_stats = run_with(qpad, starts, lo, hi, q_rows)
-    t = torch.from_numpy
-    rows = q_rows if inputs == "device_rows_host" else t(q_rows)
-    if inputs == "host":  # tasks' rows cut on the host, no q_rows
-        got, got_stats = run_with(qpad[q_rows], starts, lo, hi, None)
-    else:
-        got, got_stats = run_with(t(qpad), t(starts), t(lo), t(hi), rows)
-    for a, b in zip(want, got):
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(want_stats.visited, got_stats.visited)
-    np.testing.assert_array_equal(want_stats.distances, got_stats.distances)
-    assert want_stats.visited[q_rows].min() > 0
-    assert len(tails) == (2 if tail else 0)  # the exact scan ran in both calls
+    want_stats, got_stats = J.QueryStats(nq), QueryStats(nq)
+    want = JPV.doubling_postfilter(
+        jidx._ps, jidx._graph, qpad, q_norms, starts, lo, hi,
+        J.build_query_params(K, 10, final_beam_multiply=2), "l2",
+        stats=want_stats, stat_ids=q_rows, q_rows=q_rows)
+    q_dev, st, wl, wh, r = PBASE.to_device(pidx._ps.device, qpad, starts, lo, hi, q_rows)
+    got = PPV.doubling_postfilter(
+        pidx._ps, pidx._graph, q_dev[r], st, wl, wh,
+        P.build_query_params(K, 10, final_beam_multiply=2), "l2",
+        stats=got_stats, stat_ids=q_rows)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got_stats.visited, want_stats.visited)
+    np.testing.assert_array_equal(got_stats.distances, want_stats.distances)
+    assert got_stats.visited[q_rows].min() > 0
+    assert len(tails) == (1 if tail else 0)  # the exact scan ran
 
 
 @pytest.fixture(scope="module")

@@ -94,7 +94,7 @@ def test_batch_search_many_matches_jax():
 def test_batch_search_many_plans_on_the_device(monkeypatch, kind):
     """Three batches whose windows take both routes (the gather up to 64
     points, the scan past them): the answers equal, bit for bit, those of
-    the host-array entry given numpy's bounds and padded queries, and the
+    batched_range_bruteforce given numpy's bounds and padded queries, and the
     JAX package's (ids exactly, distances bit for bit on the integer store,
     within the parity bar on the float one, whose products differ); the
     bounds of all three come down in one fetch, after every batch's search,
@@ -114,10 +114,11 @@ def test_batch_search_many_plans_on_the_device(monkeypatch, kind):
     ps, ls = pidx._ps, pidx._labels_sorted
     for (q, f), w, g in zip(batches, want, got):
         assert_same_results(w, g, exact_dists=kind != "float")
+        starts, ends = np.searchsorted(ls, f[:, 0]), np.searchsorted(ls, f[:, 1])
         d, i = PBASE.batched_range_bruteforce(
-            ps.data, ps.norms_sq, pad_queries(q, ps.d, ps.d_pad),
-            np.searchsorted(ls, f[:, 0]), np.searchsorted(ls, f[:, 1]), 10,
-            ps.metric, norm_col=ps.norm_col)
+            ps.data, ps.norms_sq,
+            *PBASE.to_device(ps.device, pad_queries(q, ps.d, ps.d_pad), starts, ends),
+            10, ps.metric, norm_col=ps.norm_col, widths=ends - starts)
         host = PBASE.finalize_output(d, i, pidx._decoding, np.einsum("qd,qd->q", q, q),
                                      ps.metric, pad_id=-1)
         assert_same_results(host, g, exact_dists=True)
@@ -229,7 +230,6 @@ def test_host_planning_helpers_match():
                                   PBASE.pow2_classes(widths, hi=256))
     for x in (0, 1, 3, 64, 100, 2048, 2049, 10_240):
         assert PBASE.next_pow2(x) == JBASE.next_pow2(x)
-        assert PBASE.pad_batch(x) == JBASE.pad_batch(x)
     assert (PBASE.MIN_CLASS, PBASE.GATHER_BYTES_BUDGET) == (
         JBASE.MIN_CLASS, JBASE.GATHER_BYTES_BUDGET)
     assert PBASE.window_gather_max() == JBASE.WINDOW_GATHER_MAX

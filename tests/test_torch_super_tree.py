@@ -248,7 +248,8 @@ def test_label_value_bounds_route_exclusive_filter_inclusive(shared, monkeypatch
     real = PSPT.doubling_postfilter
 
     def recording(ps, g, qpad, starts, win_lo, win_hi, qp, metric, **kw):
-        calls.append((kw["q_rows"].copy(), win_lo.copy(), win_hi.copy()))
+        calls.append((kw["stat_ids"].copy(), win_lo.cpu().numpy(),
+                      win_hi.cpu().numpy()))
         return real(ps, g, qpad, starts, win_lo, win_hi, qp, metric, **kw)
 
     monkeypatch.setattr(PSPT, "doubling_postfilter", recording)
