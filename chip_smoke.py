@@ -483,13 +483,14 @@ def frontier_agreement(got, plain):
 CONFIG_NAMES = {1: "one warp a query", 4: "four warps a query"}
 
 
-def launch_config_name(q, beam, vecs):
+def launch_config_name(q, beam, vecs, scale):
     """The configuration the beam kernel's launch rule picks for a batch
-    over these blocks."""
-    from rangefilteredann_tpu_torch.ops.beam import launch_config
+    over these blocks, with their per-node scale or None."""
+    from rangefilteredann_tpu_torch.ops.beam import launch_config, table_bytes
 
-    _, r, w = vecs.shape
-    return CONFIG_NAMES[launch_config(q, beam, r, w, vecs.element_size())[0]]
+    m, r, w = vecs.shape
+    table = table_bytes(beam, m, scale is not None)
+    return CONFIG_NAMES[launch_config(q, beam, r, w, vecs.element_size(), table)[0]]
 
 
 def assert_distinct_ids(name, ids):
@@ -500,9 +501,12 @@ def assert_distinct_ids(name, ids):
 
 
 def run_beam_cases(torch):
-    """Each beam case: the kernel against its plain version on the card.
-    Fails unless the cases reach both launch configurations."""
-    from rangefilteredann_tpu_torch.ops.beam import beam_search_inline, beam_search_plain
+    """Each beam case: the kernel against its plain version on the card,
+    and its rows scored within its candidates (all of them with a scale,
+    where the table of scored ids is off). Fails unless the cases reach
+    both launch configurations."""
+    from rangefilteredann_tpu_torch.ops.beam import (_beam_cuda, beam_search_inline,
+                                                     beam_search_plain)
 
     rng = np.random.default_rng(4321)
     worst = 0.0
@@ -511,15 +515,21 @@ def run_beam_cases(torch):
         args, (data, queries) = beam_case_inputs(torch, rng, metric, r, blocks, inactive, w,
                                                  q=q, hub="hub" in name)
         kw = dict(beam=beam, limit=limit, metric=metric)
-        config = launch_config_name(q, beam, args[0])
+        config = launch_config_name(q, beam, args[0], args[3])
         configs.add(config)
         got = beam_search_inline(*args, **kw)
         plain = beam_search_plain(*args, **kw)
+        scored = _beam_cuda(*args, **kw)[4].cpu().numpy()
         torch.cuda.synchronize()
         gi, gd, gv, gc = (x.cpu().numpy() for x in got)
         pi, pd, pv, pc = (x.cpu().numpy() for x in plain)
-        if (gv[~args[-1].cpu().numpy()] != 0).any():
+        on = args[-1].cpu().numpy()
+        if (gv[~on] != 0).any():
             raise AssertionError(f"case {name}: an inactive query visited nodes")
+        cands = gc[on] - 1
+        if (scored[~on] != 0).any() or (scored[on] > cands).any() or (
+                blocks == "int8scale" and (scored[on] != cands).any()):
+            raise AssertionError(f"case {name}: rows scored {scored} beside cmps {gc}")
         assert_distinct_ids(name, gi)
         if blocks != "int8scale":
             np.testing.assert_array_equal(gi, pi, err_msg=f"case {name}: ids")
@@ -532,7 +542,8 @@ def run_beam_cases(torch):
             err = float(np.abs(gd[fin] - pd[fin]).max(initial=0.0))
             worst = max(worst, err)
             log(f"beam case {name} [{q} queries, {config}]: ok, identical ids/n_vis/cmps, "
-                f"max|dd|={err:.3g}, mean n_vis {gv.mean():.1f}")
+                f"max|dd|={err:.3g}, mean n_vis {gv.mean():.1f}, rows scored "
+                f"{scored.sum()} of {cands.sum()} candidates")
             continue
         # int8 with a scale: approximate by design (tests/test_pallas_beam.py)
         mism = float((gi != pi).mean())
@@ -1258,11 +1269,21 @@ def run_graph_path(torch, args, worst, cache):
         tot += (kernel_ms, plain_ms, flops, nbytes)
         q = a[4].shape[0]
         sum_vis = int(out[2].double().sum())
-        # the design's own ceiling: every expansion reads its block once
+        # the previous design's ceiling: every expansion reads its block once
         exp_bytes = sum_vis * block_bytes(a)
+        # what the kernel stages: each expansion's ids and norms, and the rows
+        # its table of scored ids let through
+        scored = int(beam._beam_cuda(*a, **kw)[4].double().sum())
+        cands = int((out[3].double() - a[7].double()).sum())
+        _, r, w = a[0].shape
+        staged = sum_vis * r * 8 + scored * w * a[0].element_size()
+        log(f"beam kernel beam {kw['beam']} [{q} queries]: rows scored {scored} of "
+            f"{cands} candidates ({100 * (1 - scored / max(cands, 1)):.2f}% skipped); "
+            f"staged {staged / 1e9:.3f} GB ({staged / kernel_ms / 1e6:.1f} GB/s, "
+            f"{staged / PEAK_BYTES_PER_S * 1e3:.3f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s)")
         max_vis = int(out[2].max())
         log(f"beam kernel beam {kw['beam']} [{q} queries, "
-            f"{launch_config_name(q, kw['beam'], a[0])}]: per-expansion bytes "
+            f"{launch_config_name(q, kw['beam'], a[0], a[3])}]: per-expansion bytes "
             f"{exp_bytes / 1e9:.3f} GB (sum of n_vis x {block_bytes(a)} B), "
             f"{exp_bytes / kernel_ms / 1e6:.1f} GB/s achieved against it "
             f"({exp_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s); "

@@ -27,6 +27,14 @@ and by the shared memory that beam, R, w and the element size ask for)
 takes four warps a query, so a small batch spreads its steps over more
 threads; a larger batch takes one warp a query, which spends no threads on
 barriers and packs the most queries into an SM.
+
+Each query's CTA stages only the rows of ids it has not scored yet in the
+launch, by a table of scored ids whose size follows beam (`table_bits`;
+its entries' width follows the node count, `table_bytes`), into a buffer
+of at most STAGE_BYTES in the one-warp configuration (`stage_rows`);
+blocks with a per-node scale take no table and stage whole blocks. While
+the port's tracing is on, the rows scored and the candidates of each
+launch add up on the card in `BEAM_ROWS_SCORED` and `BEAM_CANDIDATES`.
 """
 
 from __future__ import annotations
@@ -37,20 +45,26 @@ import torch
 
 from .. import kernels
 from ..utils.data import METRIC_L2, METRIC_MIPS
-from ..utils.trace import span
+from ..utils.trace import DeviceCount, span, tracing
 from .beam_search import batched_beam_search
 from .distances import fused_norm_distances, gathered_distances
 
 # Kernel launches since the count was last set to 0 (launches only, never
 # calls that took the plain version).
 BEAM_LAUNCHES = 0
+# While tracing is on: rows the kernel scored, and candidates (valid ids met,
+# cmps less each active query's start), summed on the card.
+BEAM_ROWS_SCORED = DeviceCount()
+BEAM_CANDIDATES = DeviceCount()
 
 MAX_R = 64  # csrc/beam_search.cu MAX_R
 MAX_W = 256  # csrc/beam_search.cu MAX_W
 MAX_BEAM = 2048  # csrc/beam_search.cu MAX_BEAM
 BLOCKS_PER_SM = 4  # csrc/beam_search.cu BLOCKS_PER_SM: 4-warp CTAs an SM holds
-CTL_BYTES = 32  # csrc/beam_search.cu CTL_BYTES
-CAND_ARRAYS = 11  # csrc/beam_search.cu CAND_ARRAYS
+CTL_BYTES = 48  # csrc/beam_search.cu CTL_BYTES
+CAND_ARRAYS = 12  # csrc/beam_search.cu CAND_ARRAYS
+TABLE_PER_BEAM = 8  # csrc/beam_search.cu TABLE_PER_BEAM
+STAGE_BYTES = 16384  # csrc/beam_search.cu STAGE_BYTES
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233_472  # shared memory of an SM (228 KB)
 SMEM_RESERVED = 1024  # shared memory the system keeps per CTA
@@ -67,7 +81,7 @@ def _kernel():
         fn = kernels.load("beam_search").beam_search_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p,
-                       p, p, p]
+                       p, p, p, p]
         fn.restype = i
         _launch_fn = fn
     return _launch_fn
@@ -86,21 +100,49 @@ def kernel_covers(graph, beam: int, degree_limit: int) -> bool:
             and w <= MAX_W and w % 32 == 0 and 1 <= beam <= MAX_BEAM)
 
 
-def query_smem_bytes(beam: int, r: int, w: int, elem: int) -> int:
-    """Shared memory of one query's CTA (csrc/beam_search.cu
-    query_smem_bytes): control words, the query, the candidates' scratch,
-    the staged [r, w] block of `elem`-byte elements, the frontier."""
-    return (CTL_BYTES + 4 * w + CAND_ARRAYS * MAX_R * 4 + r * w * elem + 9 * beam
-            + 15) // 16 * 16
+def table_bits(beam: int, scaled: bool) -> int:
+    """log2 of the slots of a query's table of scored ids
+    (csrc/beam_search.cu table_bits): the least power of two >=
+    TABLE_PER_BEAM x beam, or 0 (no table) for blocks with a scale."""
+    return 0 if scaled else (TABLE_PER_BEAM * beam - 1).bit_length()
 
 
-def launch_config(q: int, beam: int, r: int, w: int, elem: int):
+def table_bytes(beam: int, m: int, scaled: bool) -> int:
+    """Shared memory of a query's table of scored ids over m nodes: 2
+    bytes a slot (a tag), or 4 (an id) where some id's tag reaches 0xffff
+    (csrc/beam_search.cu table_wide)."""
+    bits = table_bits(beam, scaled)
+    if not bits:
+        return 0
+    return (4 if (m - 1) >> bits >= 0xFFFF else 2) << bits
+
+
+def stage_rows(r: int, w: int, elem: int, wpq: int) -> int:
+    """Rows of the staging buffer (csrc/beam_search.cu stage_rows): the
+    whole block, up to STAGE_BYTES in the one-warp configuration."""
+    return r if wpq != 1 else min(r, STAGE_BYTES // (w * elem))
+
+
+def query_smem_bytes(beam: int, r: int, w: int, elem: int, table: int, wpq: int) -> int:
+    """Shared memory of one query's CTA in a configuration of wpq warps
+    (csrc/beam_search.cu query_smem_bytes): control words, the query, the
+    candidates' scratch, the table of scored ids (`table` bytes,
+    table_bytes), the staging buffer of rows of w `elem`-byte elements, the
+    frontier."""
+    return (CTL_BYTES + 4 * w + CAND_ARRAYS * MAX_R * 4 + table
+            + stage_rows(r, w, elem, wpq) * w * elem + 9 * beam + 15) // 16 * 16
+
+
+def launch_config(q: int, beam: int, r: int, w: int, elem: int, table: int):
     """(warps per query, dynamic shared memory bytes a CTA) of a launch of
-    q queries at this beam over [r, w] blocks of `elem`-byte elements: four
-    warps a query when every query's CTA is resident at once, else one."""
-    smem = query_smem_bytes(beam, r, w, elem)
+    q queries at this beam over [r, w] blocks of `elem`-byte elements, with
+    a table of `table` bytes (table_bytes): four warps a query when every
+    query's four-warp CTA is resident at once, else one."""
+    smem = query_smem_bytes(beam, r, w, elem, table, 4)
     ctas_per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
-    return (4 if q <= SMS * ctas_per_sm else 1), smem
+    if q <= SMS * ctas_per_sm:
+        return 4, smem
+    return 1, query_smem_bytes(beam, r, w, elem, table, 1)
 
 
 def start_distances(ps, graph, queries, starts, metric):
@@ -152,7 +194,7 @@ def beam_search_inline(
     if nbr_vecs.device.type != "cuda":
         raise ValueError(f"beam_search_inline takes CPU or CUDA tensors, "
                          f"got {nbr_vecs.device}")
-    return _beam_cuda(*args, beam=beam, limit=limit, metric=metric)
+    return _beam_cuda(*args, beam=beam, limit=limit, metric=metric)[:4]
 
 
 def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
@@ -191,8 +233,9 @@ def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
     f_d = torch.empty((q, beam), dtype=torch.float32, device=dev)
     n_vis = torch.empty(q, dtype=torch.int32, device=dev)
     cmps = torch.empty(q, dtype=torch.int32, device=dev)
+    scored = torch.empty(q, dtype=torch.int32, device=dev)  # rows each query scored
     if q == 0:
-        return f_ids, f_d, n_vis, cmps
+        return f_ids, f_d, n_vis, cmps, scored
     if nbr_vecs.dtype in _BYTE_DTYPES:  # the reference's operand policy
         queries = queries.to(torch.bfloat16).to(torch.float32)
     queries = queries.contiguous()
@@ -210,11 +253,15 @@ def _beam_cuda(nbr_vecs, nbrs, nbr_norms, nbr_scale, queries, starts, d0,
             queries.data_ptr(), starts.data_ptr(), d0.data_ptr(), act.data_ptr(),
             q, m, r, w, int(beam), int(min(limit, 2**31 - 1)),
             int(metric == METRIC_L2),
-            launch_config(q, beam, r, w, nbr_vecs.element_size())[0],
+            launch_config(q, beam, r, w, nbr_vecs.element_size(),
+                          table_bytes(beam, m, nbr_scale is not None))[0],
             f_ids.data_ptr(), f_d.data_ptr(),
-            n_vis.data_ptr(), cmps.data_ptr(),
+            n_vis.data_ptr(), cmps.data_ptr(), scored.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beam_search launch failed (code {rc})")
     BEAM_LAUNCHES += 1
-    return f_ids, f_d, n_vis, cmps
+    if tracing():  # on the card, no host sync
+        BEAM_ROWS_SCORED.add(scored.sum())
+        BEAM_CANDIDATES.add(cmps.sum() - act.sum())
+    return f_ids, f_d, n_vis, cmps, scored

@@ -12,13 +12,18 @@ The counters beside them are module-level ints that count always:
 `models.base.UPLOADS` and `FETCHES` (tensors copied to and from the device),
 `models.postfilter_vamana.ROUNDS` (doubling rounds), `ops.scan.SCAN_LAUNCHES`
 and `ops.beam.BEAM_LAUNCHES` (kernel launches), `models.prefilter.DEVICE_PLANS`
-(batches whose window bounds were searched on the store's device).
+(batches whose window bounds were searched on the store's device). Counts
+that the card computes are `DeviceCount`s, which add up only while tracing
+is on and stay on the device until `int()` reads them:
+`ops.beam.BEAM_ROWS_SCORED` and `BEAM_CANDIDATES` (the beam kernel's rows
+scored, and its candidates less each query's start).
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import torch
 from torch.profiler import record_function
 
 SPANS = (
@@ -58,7 +63,32 @@ def set_tracing(on: bool) -> None:
     _on = bool(on)
 
 
+def tracing() -> bool:
+    """Whether the port's spans are open."""
+    return _on
+
+
 def span(name: str):
     """A context that records `name` on the profiler's timeline while
     tracing is on, and does nothing otherwise."""
     return record_function(name) if _on else _NULL
+
+
+class DeviceCount:
+    """A count summed on the device, one int64 a device: `add` queues a
+    sum and an addition on the tensor's stream (no host sync); `int()`
+    fetches the totals, so read it only outside the steps it counts."""
+
+    def __init__(self):
+        self._totals: dict = {}
+
+    def add(self, total: torch.Tensor) -> None:
+        """Adds a 0-d integer tensor."""
+        t = self._totals.get(total.device)
+        if t is None:
+            self._totals[total.device] = total.to(torch.int64).clone()
+        else:
+            t += total
+
+    def __int__(self) -> int:
+        return sum(int(t) for t in self._totals.values())

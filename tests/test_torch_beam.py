@@ -392,7 +392,7 @@ def test_kernel_coverage_rule_and_caps():
     assert not PBEAM.kernel_covers(g, 80, 0)
     src = (kernels.CSRC / "beam_search.cu").read_text()
     for name in ("MAX_R", "MAX_W", "MAX_BEAM", "BLOCKS_PER_SM", "CTL_BYTES",
-                 "CAND_ARRAYS"):
+                 "CAND_ARRAYS", "TABLE_PER_BEAM", "STAGE_BYTES"):
         assert f"constexpr int {name} = {getattr(PBEAM, name)};" in src
     assert "__launch_bounds__(32 * WPQ, WPQ == 1 ? 1 : BLOCKS_PER_SM)" in src
     assert "beam_search" in kernels.SOURCES
@@ -406,31 +406,58 @@ SMEM_PER_CTA = 232_448  # the most dynamic shared memory an H100 CTA may take
 
 @pytest.mark.parametrize("q", [1, 16, 10240])
 def test_launch_config_rule_fits_the_card(q):
-    """Across the grid of the caps, the launch rule returns one of the two
-    configurations, and its shared memory (the kernel's layout, mirrored
-    from the .cu constants) fits a CTA; small batches take four warps a
-    query, the main path's 10,240-query launches one warp a query."""
+    """Across the grid of the caps, the postfilter's beams and node counts
+    that take 16-bit tags or whole ids in the table of scored ids, the
+    launch rule returns one of the two configurations, and its shared
+    memory (the kernel's layout, mirrored from the .cu constants: the table
+    of TABLE_PER_BEAM x beam slots, a power of two, unless the blocks carry
+    a scale, and a staging buffer of one block, in the one-warp
+    configuration at most STAGE_BYTES) fits a CTA; small batches take four
+    warps a query, the main path's 10,240-query launches one warp a
+    query."""
     for r in (1, 48, 64):
         for w in (32, 128, 256):
-            for beam in (1, 80, 2048):
+            for beam in (1, 80, 160, 640, 2048):
                 for dtype in PBEAM._DTYPE_CODES:
-                    class G:
-                        nbr_vecs = torch.zeros((2, r, w), dtype=dtype)
-                        nbr_scale = None
-                    assert PBEAM.kernel_covers(G(), beam, 0)
-                    elem = G.nbr_vecs.element_size()
-                    wpq, smem = PBEAM.launch_config(q, beam, r, w, elem)
-                    assert wpq in (1, 4)
-                    assert smem == -(-(PBEAM.CTL_BYTES + 4 * w + 9 * beam + r * w * elem
-                                       + PBEAM.CAND_ARRAYS * PBEAM.MAX_R * 4) // 16) * 16
-                    assert smem <= SMEM_PER_CTA
-                    assert wpq == (4 if q <= 16 else 1)
-    assert PBEAM.launch_config(16, 320, 48, 128, 4)[0] == 4  # the straggler launch
-    assert PBEAM.launch_config(10240, 80, 48, 128, 4)[0] == 1  # the full launches
+                    for scaled in ((False, True) if dtype == torch.int8 else (False,)):
+                        class G:
+                            nbr_vecs = torch.zeros((2, r, w), dtype=dtype)
+                            nbr_scale = torch.ones(2) if scaled else None
+                        assert PBEAM.kernel_covers(G(), beam, 0)
+                        elem = G.nbr_vecs.element_size()
+                        assert PBEAM.stage_rows(r, w, elem, 4) == r
+                        rows1 = PBEAM.stage_rows(r, w, elem, 1)
+                        assert rows1 == r if scaled else 1 <= rows1 <= r
+                        assert rows1 * w * elem <= max(PBEAM.STAGE_BYTES, w * elem)
+                        for m in (200_000, 2**31 - 2):
+                            table = PBEAM.table_bytes(beam, m, scaled)
+                            slots = 0 if scaled else 1 << (PBEAM.TABLE_PER_BEAM * beam - 1).bit_length()
+                            assert slots == 0 or slots // 2 < PBEAM.TABLE_PER_BEAM * beam <= slots
+                            wide = slots and (m - 1) // slots >= 0xFFFF
+                            assert table == slots * (4 if wide else 2)
+                            wpq, smem = PBEAM.launch_config(q, beam, r, w, elem, table)
+                            assert wpq in (1, 4)
+                            rows = r if wpq == 4 else rows1
+                            assert smem == -(-(PBEAM.CTL_BYTES + 4 * w + 9 * beam + rows * w * elem
+                                               + PBEAM.CAND_ARRAYS * PBEAM.MAX_R * 4
+                                               + table) // 16) * 16
+                            assert smem <= SMEM_PER_CTA
+                            assert wpq == (4 if q <= 16 else 1)
+    assert PBEAM.table_bytes(80, 200_000, False) == 2048  # 1024 16-bit tags
+    assert PBEAM.table_bytes(80, 2**31 - 2, False) == 4096  # 1024 ids
+    assert PBEAM.stage_rows(64, 128, 4, 1) == 32 and PBEAM.stage_rows(64, 128, 2, 1) == 64
+    t = PBEAM.table_bytes  # the main path: R 64, w 128 fp32 over 200k nodes
+    assert PBEAM.launch_config(16, 320, 48, 128, 4, t(320, 200_000, False))[0] == 4  # straggler
+    assert PBEAM.launch_config(10240, 80, 48, 128, 4, t(80, 200_000, False))[0] == 1  # full
     # the rule's edge: every query its own 4-warp CTA, all resident at once
     edge = PBEAM.SMS * PBEAM.BLOCKS_PER_SM
-    assert PBEAM.launch_config(edge, 320, 48, 128, 4)[0] == 4
-    assert PBEAM.launch_config(edge + 1, 320, 48, 128, 4)[0] == 1
-    # a query state of ~86 KB leaves two CTAs an SM, and the edge moves with it
-    assert PBEAM.launch_config(2 * PBEAM.SMS, 2048, 64, 256, 4)[0] == 4
-    assert PBEAM.launch_config(2 * PBEAM.SMS + 1, 2048, 64, 256, 4)[0] == 1
+    assert PBEAM.launch_config(edge, 320, 48, 128, 4, t(320, 200_000, False))[0] == 4
+    assert PBEAM.launch_config(edge + 1, 320, 48, 128, 4, t(320, 200_000, False))[0] == 1
+    # a four-warp query state of ~90 KB (a whole 64 KB block staged, beam
+    # 640's table of 16-bit tags 16 KB) leaves two CTAs an SM, and the edge
+    # moves with it; at beam 2048 (~118 KB), one
+    assert PBEAM.launch_config(2 * PBEAM.SMS, 640, 64, 256, 4, t(640, 200_000, False))[0] == 4
+    assert PBEAM.launch_config(2 * PBEAM.SMS + 1, 640, 64, 256, 4,
+                               t(640, 200_000, False))[0] == 1
+    assert PBEAM.launch_config(PBEAM.SMS, 2048, 64, 256, 4, t(2048, 2**31 - 2, False))[0] == 4
+    assert PBEAM.launch_config(PBEAM.SMS + 1, 2048, 64, 256, 4, t(2048, 2**31 - 2, False))[0] == 1

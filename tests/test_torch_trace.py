@@ -5,7 +5,9 @@ nested in their parents, and the counters rise by what the code predicts."""
 
 from . import torch_threads  # noqa: F401  (first: one torch thread)
 
+import contextlib
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -16,8 +18,11 @@ from torch.profiler import ProfilerActivity, profile
 import rangefilteredann_tpu_torch as P
 from rangefilteredann_tpu_torch.models import base
 from rangefilteredann_tpu_torch.models import postfilter_vamana as pv
+from rangefilteredann_tpu_torch.ops import beam as PBEAM
 from rangefilteredann_tpu_torch.utils import trace
 from wsbench.spans import BREAKDOWN_SPANS
+
+from .test_torch_beam_emulated import build_emulated
 
 PKG = Path(P.__file__).resolve().parent
 N, D, NQ, K = 400, 16, 8, 5
@@ -195,3 +200,51 @@ def test_breakdown_names_resolve(spec):
 
     _, mod, attr = spec
     assert callable(getattr(importlib.import_module(mod), attr))
+
+
+@pytest.fixture(scope="module")
+def emulated_b2(tmp_path_factory):
+    return build_emulated(tmp_path_factory.mktemp("beam_emu"))
+
+
+@pytest.mark.parametrize("inline", ["float32", "int8"])
+def test_beam_counters(post, emulated_b2, monkeypatch, inline):
+    """The postfilter's searches through the beam kernel's wrapper
+    (ops.beam._beam_cuda), its launch made by the kernel's own source built
+    for the CPU: the rows scored and the candidates add up only while
+    tracing is on, the copies to and from the device are those of the plain
+    route whether tracing is on or off, and the table of scored ids skips
+    rows of float32 blocks and none of int8 blocks with a scale."""
+    idx, q, f = post
+    g = idx._graph
+    g.attach_inline(idx._ps, getattr(torch, inline))
+    rows, cands = PBEAM.BEAM_ROWS_SCORED, PBEAM.BEAM_CANDIDATES
+    try:
+        *_, plain = searched(idx, q, f)
+        with monkeypatch.context() as mp:
+            mp.setattr(PBEAM, "_kernel", lambda: emulated_b2)
+            mp.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+            mp.setattr(torch.cuda, "current_stream",
+                       lambda dev: types.SimpleNamespace(cuda_stream=None))
+            mp.setattr(pv, "beam_search_inline", lambda *a, **kw: PBEAM._beam_cuda(*a, **kw)[:4])
+            launches = PBEAM.BEAM_LAUNCHES
+            before = int(rows), int(cands)
+            ids0, d0, _, c0 = searched(idx, q, f, on=False)
+            assert (int(rows), int(cands)) == before
+            ids1, d1, _, c1 = searched(idx, q, f)
+            scored, met = int(rows) - before[0], int(cands) - before[1]
+            assert PBEAM.BEAM_LAUNCHES > launches
+    finally:
+        g.nbr_vecs = g.nbr_norms = g.nbr_scale = None
+    assert np.array_equal(ids0, ids1) and np.array_equal(d0, d1)
+    assert c0 == c1 == plain
+    assert 0 < scored < met if inline == "float32" else 0 < scored == met
+
+
+def test_device_count():
+    """A DeviceCount sums 0-d tensors where they live and reads as an int."""
+    c = trace.DeviceCount()
+    assert int(c) == 0
+    c.add(torch.tensor(5, dtype=torch.int32))
+    c.add(torch.tensor([1, 2, 3]).sum())
+    assert int(c) == 11
